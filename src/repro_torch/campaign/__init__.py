@@ -1,0 +1,26 @@
+"""repro_torch.campaign — the measurement backend on the device, the
+persistent result store, and the resumable campaign orchestrator. ::
+
+    from repro_torch.campaign import Campaign, CampaignSpec, TorchSimBackend
+    from repro_torch.core import ExperimentDesign, TestCase
+
+    spec = CampaignSpec([TestCase("allreduce", 4096)],
+                        ExperimentDesign(n_launch_epochs=10, nrep=100))
+    res = Campaign(spec, TorchSimBackend(p=16)).run()       # on the GPU
+    res = Campaign(spec, TorchSimBackend(p=16, device="cpu")).run()
+"""
+
+from .backends import MeasurementBackend, TorchSimBackend
+from .core import Campaign, CampaignResult, CampaignSpec
+from .store import SCHEMA_VERSION, ResultStore, StoreSnapshot
+
+__all__ = [
+    "MeasurementBackend",
+    "TorchSimBackend",
+    "Campaign",
+    "CampaignResult",
+    "CampaignSpec",
+    "ResultStore",
+    "StoreSnapshot",
+    "SCHEMA_VERSION",
+]
