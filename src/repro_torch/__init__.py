@@ -10,12 +10,20 @@ cluster, clocks, sync algorithms, cost models, design, factors, store) is
 numpy, copied from ``repro`` so that one seed draws the same host state in
 both packages. This package imports neither JAX nor ``repro``.
 
+The second path is the kernel A/B campaign:
+``verify_guidelines(KERNEL_GUIDELINES, TorchKernelBackend(...))`` →
+``Campaign.run`` → :class:`~repro_torch.campaign.TorchKernelBackend` →
+:mod:`repro_torch.core.runtime_meter` → the hand-written Hopper kernels
+``flash_attention`` and ``ssd_scan`` (:mod:`repro_torch.kernels.ops`),
+each measured against its plain PyTorch version with the paper's method
+(launch epochs, Wilcoxon, Holm).
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 each kernel's plain PyTorch version runs instead.
 """
 
 from .campaign import (Campaign, CampaignResult, CampaignSpec, ResultStore,
-                       TorchSimBackend)
+                       TorchKernelBackend, TorchSimBackend)
 from .core import ExperimentDesign, TestCase
 
 __all__ = [
@@ -24,6 +32,7 @@ __all__ = [
     "CampaignSpec",
     "ResultStore",
     "TorchSimBackend",
+    "TorchKernelBackend",
     "ExperimentDesign",
     "TestCase",
 ]

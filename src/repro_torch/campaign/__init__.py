@@ -8,15 +8,19 @@ persistent result store, and the resumable campaign orchestrator. ::
                         ExperimentDesign(n_launch_epochs=10, nrep=100))
     res = Campaign(spec, TorchSimBackend(p=16)).run()       # on the GPU
     res = Campaign(spec, TorchSimBackend(p=16, device="cpu")).run()
+
+:class:`TorchKernelBackend` runs the same method against the hand-written
+kernels and their plain versions (the kernel A/B path).
 """
 
-from .backends import MeasurementBackend, TorchSimBackend
+from .backends import MeasurementBackend, TorchKernelBackend, TorchSimBackend
 from .core import Campaign, CampaignResult, CampaignSpec
 from .store import SCHEMA_VERSION, ResultStore, StoreSnapshot
 
 __all__ = [
     "MeasurementBackend",
     "TorchSimBackend",
+    "TorchKernelBackend",
     "Campaign",
     "CampaignResult",
     "CampaignSpec",

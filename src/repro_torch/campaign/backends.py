@@ -8,25 +8,33 @@ is the calibrated cluster simulator (SimNet + window-based sync, §3.3/§4)
 with its measurements on the device through :mod:`repro_torch.simengine`:
 the port of the JAX package's ``SimBackend``, with the same dataclass
 fields and knobs, so a store it writes carries the same factors.
+:class:`TorchKernelBackend` measures real work instead: the hand-written
+Hopper kernels against their plain PyTorch versions, the port of
+``KernelBackend``.
 """
 
 from __future__ import annotations
 
 import inspect
+import time
 from dataclasses import dataclass, field
 from typing import Any, Protocol, runtime_checkable
 
 import numpy as np
+import torch
 
 from ..core.design import ExperimentDesign, TestCase, measure_adaptive
 from ..core.factors import FactorSet, capture_torch_factors
 from ..core.mpi_ops import make_composite_op
+from ..core.opexpr import parse_opexpr
+from ..core.runtime_meter import MeterConfig, TorchEpochContext
 from ..core.simnet import ClockParams, SimNet
 from ..core.sync import SYNC_CLASSES, make_sync
+from ..kernels.ops import IMPLS, make_benchmark_op
 from ..simengine import (SimTorchUnavailable, resolve_device,
                          run_windowed_epochs_torch, run_windowed_torch)
 
-__all__ = ["MeasurementBackend", "TorchSimBackend"]
+__all__ = ["MeasurementBackend", "TorchSimBackend", "TorchKernelBackend"]
 
 _SYNC_KW = dict(n_fitpts=200, n_exchanges=40)
 
@@ -293,3 +301,135 @@ class TorchSimBackend:
 
     def default_cases(self) -> list[TestCase]:
         return [TestCase("allreduce", m) for m in (256, 4096)]
+
+
+# ---------------------------------------------------------------------------
+# Kernel backend
+# ---------------------------------------------------------------------------
+
+def _sequence_calls(fns):
+    """One timed callable running ``fns`` back to back — the composite
+    mock-up region. The meter fences on the *returned* value only, so
+    return the last term's output (each earlier launch is enqueued before
+    it on the same stream and completes first)."""
+    if len(fns) == 1:
+        return fns[0]
+
+    def composite():
+        out = None
+        for f in fns:
+            out = f()
+        return out
+
+    return composite
+
+
+@dataclass
+class TorchKernelBackend:
+    """The hand-written kernels vs. their plain versions as operations
+    under test.
+
+    ``case.op`` names the kernel (``flash_attention`` / ``ssd_scan``),
+    ``case.msize`` is the sequence length. ``impl`` selects which side of
+    the A/B comparison this backend measures: ``"cuda"`` (the kernel) or
+    ``"ref"`` (its plain PyTorch version).
+
+    A case may also be an op *expression* (:mod:`repro_torch.core.opexpr`):
+    a ``#impl`` tag overrides the backend-level ``impl`` for that term, so
+    the guideline ``"flash_attention#cuda" <= "flash_attention#ref"`` (the
+    kernel must not lose to its own plain version) runs both sides in the
+    *same* campaign, and ``+`` sequences kernels inside one timed region.
+    ``@half`` has no meaning for single-device kernels and is rejected.
+
+    The fields are those of the JAX package's ``KernelBackend``, with
+    ``device`` in place of ``interpret``: ``"cuda"`` (the default) or
+    ``"cpu"``, where each kernel's wrapper runs its plain version.
+    Constructing a CUDA backend on a machine without a GPU raises.
+    """
+
+    impl: str = "cuda"                # cuda | ref
+    batch: int = 1
+    heads: int = 4
+    kv_heads: int | None = None
+    head_dim: int = 32
+    state_dim: int = 16
+    device: str = "cuda"              # cuda | cpu
+    seed0: int = 0
+    meter: MeterConfig = field(
+        default_factory=lambda: MeterConfig(epoch_isolation="clear_caches",
+                                            warmup=1))
+    name: str = "kernel"
+    _last_epoch: Any = field(default=None, init=False, repr=False,
+                             compare=False)
+    _build_s: dict = field(default_factory=dict, init=False, repr=False,
+                           compare=False)
+
+    def __post_init__(self):
+        if self.impl not in IMPLS:
+            raise ValueError(f"TorchKernelBackend: impl must be one of "
+                             f"{IMPLS}, got {self.impl!r}")
+        resolve_device(self.device)
+
+    def make_epoch(self, epoch: int) -> TorchEpochContext:
+        def build(_epoch: int) -> dict:
+            return {}
+
+        ctx = TorchEpochContext(build, epoch, self.meter,
+                                previous=self._last_epoch)
+        self._last_epoch = ctx
+        return ctx
+
+    def _build_case(self, opexpr: str, msize: int, epoch: int):
+        fns = []
+        for t in parse_opexpr(opexpr):
+            if t.procs == "half":
+                raise ValueError("TorchKernelBackend: '@half' has no meaning "
+                                 f"for single-device kernels (case {opexpr!r})")
+            fns.append(make_benchmark_op(
+                t.op, t.impl or self.impl, seq=t.msize(msize),
+                batch=self.batch, heads=self.heads, kv_heads=self.kv_heads,
+                head_dim=self.head_dim, state_dim=self.state_dim,
+                seed=self.seed0 + epoch, device=resolve_device(self.device)))
+        return _sequence_calls(fns)
+
+    def measure(self, ctx: TorchEpochContext, case: TestCase,
+                nrep: int) -> np.ndarray:
+        key = f"{case.op}@{case.msize}"
+        if key not in ctx.callables:
+            t0 = time.perf_counter()
+            ctx.callables[key] = self._build_case(case.op, case.msize,
+                                                  ctx.epoch)
+            if resolve_device(self.device).type == "cuda":
+                torch.cuda.synchronize()
+            self._build_s[(ctx.epoch, key)] = time.perf_counter() - t0
+        return ctx.measure(key, nrep)
+
+    def record_meta(self, ctx: TorchEpochContext, case: TestCase) -> dict:
+        """Per-record provenance: the device the case ran on, and the host
+        seconds spent building its inputs (numpy draws and the copy to the
+        device), outside the timed calls."""
+        key = f"{case.op}@{case.msize}"
+        return {"device": str(resolve_device(self.device)),
+                "build_s": self._build_s.pop((ctx.epoch, key), 0.0)}
+
+    def factors(self, design: ExperimentDesign) -> FactorSet:
+        dev = resolve_device(self.device)
+        return capture_torch_factors(
+            device=dev,
+            backend=dev.type,
+            device_kind=(torch.cuda.get_device_name(dev)
+                         if dev.type == "cuda" else "cpu"),
+            measurement_backend=self.name,
+            sync_method="cuda_synchronize",
+            epoch_isolation=self.meter.epoch_isolation,
+            buffer_policy="cold" if self.meter.cold_buffers else "warm",
+            extra=(("impl", self.impl), ("batch", self.batch),
+                   ("heads", self.heads), ("kv_heads", self.kv_heads),
+                   ("head_dim", self.head_dim),
+                   ("state_dim", self.state_dim), ("seed0", self.seed0),
+                   ("device", self.device)),
+            **_design_factor_kw(design),
+        )
+
+    def default_cases(self) -> list[TestCase]:
+        return [TestCase("flash_attention", s) for s in (64, 128)]

@@ -1,8 +1,9 @@
-"""Carry simulator state from the JAX package's objects into the port's.
+"""Carry state from the JAX package's objects into the port's.
 
 The counterpart of loading a reference model's weights: a test builds a
 cluster and synchronizes it with the reference, then hands the same state
-to both engines. The reference's objects are read duck-typed, as plain
+to both engines; or it draws kernel inputs once and hands the same
+tensors to both packages (:func:`tensors_from_reference`). The reference's objects are read duck-typed, as plain
 numbers and numpy arrays (clock parameters, ``net.t``, the RNG's
 ``bit_generator.state``, the sync models, an op's cost parameters and
 AR(1) state), so this module imports nothing of the reference package.
@@ -18,13 +19,15 @@ import copy
 import dataclasses
 
 import numpy as np
+import torch
 
 from .core.clocks import LinearModel, SimClock
 from .core.mpi_ops import SimCollective, SimCompositeOp
 from .core.simnet import ClockParams, NetParams, SimNet
 from .core.sync.base import SyncResult
 
-__all__ = ["net_from_reference", "sync_from_reference", "op_from_reference"]
+__all__ = ["net_from_reference", "sync_from_reference", "op_from_reference",
+           "tensors_from_reference"]
 
 
 def _fields(cls, obj) -> dict:
@@ -77,3 +80,29 @@ def op_from_reference(op) -> SimCollective:
         out = SimCollective(**_fields(SimCollective, op))
     out._ar_state = float(op._ar_state)
     return out
+
+
+def _tensor(a, device, dtype) -> torch.Tensor:
+    a = np.array(a)                     # a writable copy: torch shares its memory
+    if a.dtype.name == "bfloat16":      # numpy has no bf16; f32 holds it exactly
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def tensors_from_reference(arrays, device, dtype=None):
+    """The reference's arrays (numpy, or anything ``np.asarray`` reads, in
+    model layout) as the port's tensors on ``device``, in the same
+    structure: one array, a sequence, or a dict of them.
+
+    Values are carried exactly: bfloat16 arrays go through float32, which
+    holds them. ``dtype``, when given, converts afterwards.
+    """
+    if isinstance(arrays, dict):
+        return {k: _tensor(a, device, dtype) for k, a in arrays.items()}
+    if isinstance(arrays, (list, tuple)):
+        return type(arrays)(_tensor(a, device, dtype) for a in arrays)
+    return _tensor(arrays, device, dtype)

@@ -1,14 +1,17 @@
-"""The statistics the experimental design needs (§3.5, §3.4).
+"""The statistics the experimental design needs (§3.5, §3.4, §6.2).
 
 Copied from the JAX package's ``repro.core.stats`` (numpy only): Tukey's
-outlier filter and the relative CI half-width of the mean behind
-adaptive-``nrep`` stopping. The tests that certify the port run the
-reference package's own statistics on its results.
+outlier filter, the relative CI half-width of the mean behind
+adaptive-``nrep`` stopping, and the Wilcoxon rank-sum test with Holm's
+step-down correction and the paper's significance stars that compare two
+implementations and verify guideline families. The tests that certify the
+port run the reference package's own statistics on its results.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -19,6 +22,10 @@ __all__ = [
     "t_ppf",
     "mean_confidence_interval",
     "relative_ci_width",
+    "RankSumResult",
+    "wilcoxon_rank_sum",
+    "holm_bonferroni",
+    "significance_stars",
 ]
 
 
@@ -121,3 +128,138 @@ def relative_ci_width(x: np.ndarray, level: float = 0.95) -> float:
     if m == 0.0:
         return float("inf")
     return float((hi - lo) / (2.0 * abs(m)))
+
+
+# ---------------------------------------------------------------------------
+# Wilcoxon rank-sum (Mann-Whitney) test (§6.2)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RankSumResult:
+    statistic: float       # Mann-Whitney U of sample A
+    z: float               # normal-approximation z score
+    p_value: float
+    alternative: str
+    n_a: int
+    n_b: int
+
+    @property
+    def significant(self) -> bool:
+        return self.p_value <= 0.05
+
+    @property
+    def stars(self) -> str:
+        return significance_stars(self.p_value)
+
+
+def _rank_with_ties(values: np.ndarray) -> tuple[np.ndarray, float]:
+    """Midranks plus the tie-correction term ``sum(t^3 - t)``."""
+    order = np.argsort(values, kind="mergesort")
+    ranks = np.empty(values.size, dtype=np.float64)
+    sorted_vals = values[order]
+    tie_term = 0.0
+    i = 0
+    while i < values.size:
+        j = i
+        while j + 1 < values.size and sorted_vals[j + 1] == sorted_vals[i]:
+            j += 1
+        avg_rank = 0.5 * (i + j) + 1.0
+        ranks[order[i:j + 1]] = avg_rank
+        t = j - i + 1
+        if t > 1:
+            tie_term += t**3 - t
+        i = j + 1
+    return ranks, tie_term
+
+
+def wilcoxon_rank_sum(a: np.ndarray, b: np.ndarray,
+                      alternative: str = "two-sided") -> RankSumResult:
+    """WILCOXON TEST of the paper (§6.2): nonparametric comparison of two
+    independent samples (e.g. the 30 per-mpirun medians of two MPI
+    libraries, Fig. 28).
+
+    ``alternative='less'`` tests H_a: A < B (the "is library X faster?"
+    question of Fig. 30); ``'greater'`` the reverse. Normal approximation
+    with tie correction and continuity correction — appropriate for the
+    paper's regime (n >= ~10 per side).
+    """
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    n1, n2 = a.size, b.size
+    if n1 == 0 or n2 == 0:
+        raise ValueError("empty sample")
+    if alternative not in ("two-sided", "less", "greater"):
+        raise ValueError(f"unknown alternative {alternative!r}")
+    combined = np.concatenate([a, b])
+    ranks, tie_term = _rank_with_ties(combined)
+    r1 = float(np.sum(ranks[:n1]))
+    u1 = r1 - n1 * (n1 + 1) / 2.0   # Mann-Whitney U of sample A
+    mu = n1 * n2 / 2.0
+    n = n1 + n2
+    sigma2 = n1 * n2 / 12.0 * ((n + 1) - tie_term / (n * (n - 1)))
+    if sigma2 <= 0.0:
+        # every observation tied: under the permutation null every
+        # assignment yields this same U, so the exact p is 1 for every
+        # alternative — crucially NOT 0, which the continuity-corrected
+        # normal approximation would produce from the floored sigma (and
+        # which would let two bit-identical constant runs test "different")
+        return RankSumResult(statistic=u1, z=0.0, p_value=1.0,
+                             alternative=alternative, n_a=n1, n_b=n2)
+    sigma = math.sqrt(sigma2)
+
+    def z_of(u: float, shift: float) -> float:
+        return (u - mu + shift) / sigma
+
+    if alternative == "two-sided":
+        z = z_of(u1, -0.5 * math.copysign(1.0, u1 - mu))
+        p = 2.0 * 0.5 * math.erfc(abs(z) / math.sqrt(2.0))
+        p = min(1.0, p)
+    elif alternative == "less":
+        # small U1 (A ranked low -> A smaller) is evidence for A < B
+        z = z_of(u1, +0.5)
+        p = 0.5 * math.erfc(-z / math.sqrt(2.0))  # P(Z <= z)
+    elif alternative == "greater":
+        z = z_of(u1, -0.5)
+        p = 0.5 * math.erfc(z / math.sqrt(2.0))   # P(Z >= z)
+    else:
+        raise ValueError(f"unknown alternative {alternative!r}")
+    return RankSumResult(statistic=u1, z=z, p_value=float(p),
+                         alternative=alternative, n_a=n1, n_b=n2)
+
+
+def holm_bonferroni(pvals) -> np.ndarray:
+    """Holm's step-down adjusted p-values (family-wise error control).
+
+    Verifying a whole family of performance guidelines means one Wilcoxon
+    test per (guideline, message size) cell; declaring a violation whenever
+    any raw p <= alpha would inflate the family-wise false-violation rate
+    far past alpha. Holm's procedure — ``adj_(i) = max_{j<=i} (m-j+1) *
+    p_(j)`` over the ascending order, clipped at 1 — is uniformly more
+    powerful than plain Bonferroni and needs no independence assumption,
+    which matters because guideline tests share measurement cells.
+    """
+    p = np.asarray(pvals, dtype=np.float64)
+    if p.ndim != 1:
+        raise ValueError("holm_bonferroni expects a 1-D array of p-values")
+    m = p.size
+    if m == 0:
+        return p.copy()
+    if np.any((p < 0) | (p > 1) | ~np.isfinite(p)):
+        raise ValueError("p-values must be finite and in [0, 1]")
+    order = np.argsort(p, kind="mergesort")
+    stepped = (m - np.arange(m)) * p[order]
+    adj_sorted = np.minimum(np.maximum.accumulate(stepped), 1.0)
+    adj = np.empty(m)
+    adj[order] = adj_sorted
+    return adj
+
+
+def significance_stars(p: float) -> str:
+    """The paper's asterisk notation: *** p<=0.001, ** p<=0.01, * p<=0.05."""
+    if p <= 0.001:
+        return "***"
+    if p <= 0.01:
+        return "**"
+    if p <= 0.05:
+        return "*"
+    return ""

@@ -25,8 +25,8 @@ __all__ = ["BUILD_DIR", "build_library", "nvcc_path"]
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-_FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler",
-          "-fPIC", "-Xptxas", "-v")
+_OPT = ("-std=c++17", "-O3")
+_LINK = ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -42,8 +42,14 @@ def nvcc_path() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
-def build_library(source: Path, defines: dict) -> tuple[ctypes.CDLL, str]:
+def build_library(source: Path, defines: dict,
+                  flags: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, str]:
     """Compile ``source`` (once per content and flags) and load it.
+
+    ``flags`` are the kernel's own code-generation flags (``sim_scan``
+    builds with ``--fmad=false`` to round like its plain version; the
+    attention and SSD kernels, held at tolerances, keep fused
+    multiply-adds).
 
     Returns ``(library, log)``; ``log`` is what ``nvcc``/``ptxas`` printed
     when the library was built (registers, spills), or the saved log of an
@@ -51,7 +57,8 @@ def build_library(source: Path, defines: dict) -> tuple[ctypes.CDLL, str]:
     the build fails.
     """
     source = Path(source)
-    flags = [*_ARCH, *_FLAGS, *(f"-D{k}={v}" for k, v in sorted(defines.items()))]
+    flags = [*_ARCH, *_OPT, *flags, *_LINK,
+             *(f"-D{k}={v}" for k, v in sorted(defines.items()))]
     key = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
     stem = f"{source.stem}-{key.hexdigest()[:16]}"
     lib_path = BUILD_DIR / f"lib{stem}.so"

@@ -27,7 +27,8 @@ _SOURCE = Path(__file__).resolve().parent / "csrc" / "sim_scan.cu"
 def load_kernel() -> tuple[ctypes.CDLL, str]:
     """Build (at first use) and load the kernel; returns ``(lib, log)``."""
     lib, log = build_library(_SOURCE, {"SIM_SCAN_THREADS": THREADS,
-                                       "SIM_SCAN_ITEMS": ITEMS})
+                                       "SIM_SCAN_ITEMS": ITEMS},
+                             flags=("--fmad=false",))
     fn = lib.sim_scan_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 8

@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor the JAX package ``repro``, checked statically over the
-sources and at run time in a subprocess where both are blocked."""
+sources and at run time in a subprocess where both are blocked (a
+simulated campaign and a kernel guideline campaign on the CPU)."""
 
 import ast
 import os
@@ -54,9 +55,18 @@ spec = CampaignSpec([TestCase("allreduce", 512), TestCase("bcast", 4096)],
 res = Campaign(spec, TorchSimBackend(p=4, device="cpu",
                                      sync_kw=dict(n_fitpts=20, n_exchanges=5))).run()
 assert len(res.records) == 4 and all(r.times.size for r in res.records)
+
+import dataclasses
+from repro_torch import TorchKernelBackend
+from repro_torch.guidelines import KERNEL_GUIDELINES, verify_guidelines
+
+family = [dataclasses.replace(g, msizes=(32,)) for g in KERNEL_GUIDELINES]
+report = verify_guidelines(family, TorchKernelBackend(device="cpu", heads=2, head_dim=16),
+                           design=ExperimentDesign(n_launch_epochs=2, nrep=3, seed=1))
+assert len(report.verdicts) == 2 and report.n_measured == 8
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not loaded, loaded
-print("ok", len(res.records))
+print("ok", len(res.records), report.n_measured)
 """
 
 
@@ -65,4 +75,4 @@ def test_port_runs_with_jax_and_reference_blocked():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip() == "ok 4"
+    assert proc.stdout.strip() == "ok 4 8"
