@@ -9,10 +9,11 @@ A/B campaign) at sizes users run, and check what comes out.
 Phases, each of which raises (exit code 1) on failure:
 
   1. device: the card's name and power limit, torch / CUDA / nvcc versions;
-  2. build: the ``sim_scan``, ``flash_attention`` and ``ssd_scan`` CUDA
-     kernels, from ``src/repro_torch/kernels`` into ``build/kernels/``,
+  2. build: the ``sim_scan``, ``flash_attention`` (CUDA cores),
+     ``flash_attention_sm90`` (tensor cores, bf16) and ``ssd_scan`` CUDA
+     sources, from ``src/repro_torch/kernels`` into ``build/kernels/``,
      one ``nvcc`` each, all started together; each build's time and its
-     ptxas lines (registers, spills, shared memory);
+     ptxas lines (registers, spills, shared memory, performance warnings);
   3. ``sim_scan`` against its plain version on the card over a grid of
      AR(1) coefficients and shapes, then its time at the main path's shape
      beside its memory bound;
@@ -28,20 +29,26 @@ Phases, each of which raises (exit code 1) on failure:
   7. ``flash_attention`` against its plain version on the card over the
      reference's shape grid (GQA, MQA, MHA, head dims 16-256), f32 and
      bf16, sliding window, soft-cap, decode, ragged and fully masked rows
-     (which must be 0), at the reference's bounds; then its time at
-     gemma2-2b widths (S = T = 4096, causal) beside its bound, the plain
-     version and ``scaled_dot_product_attention``;
-  8. ``ssd_scan`` against its plain version over the reference's grid and
-     the sequential recurrence, f32 and bf16; then its time at
-     mamba2-1.3b widths (s = 4096, chunk 64) beside its bound and the
-     plain version;
+     (which must be 0), at the reference's bounds, plus the tensor-core
+     instance's own grid at head dims 64, 128 and 256 and its layout
+     probes; each call checked to have run through the instance its type
+     and head dim select; then both instances' times at gemma2-2b widths
+     (S = T = 4096, causal) beside the bound, the plain version and
+     ``scaled_dot_product_attention``;
+  8. ``ssd_scan`` against its plain version over the reference's grid,
+     head dims that are not multiples of the p-tile, ragged chunks and the
+     sequential recurrence, f32 and bf16; then its times at mamba2-1.3b
+     widths (S = 1024 and 4096, chunk 64) in both types beside its bound
+     and the plain version;
   9. the kernel A/B path: the kernel guideline family
      (``flash_attention#cuda ⪯ flash_attention#ref``, ``ssd_scan#cuda ⪯
      ssd_scan#ref``) through ``verify_guidelines`` at gemma2-2b and
-     mamba2-1.3b widths, S in {1024, 4096}, with a store; a violated
-     guideline (a kernel slower than its plain version) is printed, not
-     failed;
- 10. a ``kernels`` JSON line for every kernel of both paths.
+     mamba2-1.3b widths, S in {1024, 4096}, with a store, first in the
+     reference's f32, then in bf16 (the tensor-core flash instance); a
+     violated guideline (a kernel slower than its plain version) is
+     printed, not failed;
+ 10. a ``kernels`` JSON line for every kernel of both paths, flash and
+     SSD once per type.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit. Without a GPU, or outside the
@@ -52,6 +59,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +106,41 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def trace(torch, fn, reps=5) -> tuple[dict, float]:
+    """``torch.profiler`` over ``reps`` calls of ``fn`` after a warm-up:
+    device time per call of each kernel (by name, cut to 60 characters)
+    and the share of the calls' CUDA-event span the kernels fill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    span = start.elapsed_time(end)
+    per_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        per_kernel[e.key[:60]] = per_kernel.get(e.key[:60], 0.0) + us / 1e3 / reps
+    return per_kernel, sum(per_kernel.values()) * reps / span if span else 0.0
+
+
+def trace_line(per_kernel, busy) -> str:
+    if not per_kernel:
+        return "the profiler recorded no device time"
+    return ("; ".join(f"{k} {v:.4f} ms/call" for k, v in
+                      sorted(per_kernel.items(), key=lambda kv: -kv[1]))
+            + f"; kernels fill {busy:.3f} of the calls' span")
+
+
 class Spans:
     """CUDA events around each call of a wrapped function: the device time
     from the first operation a step enqueues to its last, idle gaps
@@ -139,6 +182,7 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.flash_attention.kernel import load_kernel as load_flash
+    from repro_torch.kernels.flash_attention.kernel import load_kernel_sm90 as load_flash90
     from repro_torch.kernels.sim_scan.kernel import load_kernel as load_sim
     from repro_torch.kernels.ssd_scan.kernel import load_kernel as load_ssd
 
@@ -148,17 +192,25 @@ def phase_build():
         return time.perf_counter() - t, log
 
     t0 = time.perf_counter()
-    loads = dict(sim_scan=load_sim, flash_attention=load_flash, ssd_scan=load_ssd)
+    loads = dict(sim_scan=load_sim, flash_attention=load_flash,
+                 flash_attention_sm90=load_flash90, ssd_scan=load_ssd)
     with ThreadPoolExecutor(len(loads)) as pool:     # one nvcc per source at once
         futures = {name: pool.submit(timed, load) for name, load in loads.items()}
         results = {name: f.result() for name, f in futures.items()}
+    def short(line):
+        """A ptxas line with the mangled kernel name cut to its name and
+        template arguments (``flash_fwd_sm90ILi256E``)."""
+        line = line.strip().removeprefix("ptxas info    : ")
+        m = re.search(r"'_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+(\w+?I\w*?E)E*v\w*'", line)
+        return line[:m.start()] + m.group(1) if m else line[:80]
+
     for name, (secs, log) in results.items():
-        info = [ln.strip().removeprefix("ptxas info    : ")[:72]
-                for ln in log.splitlines() if "registers" in ln or "spill" in ln
-                or "entry function" in ln]
+        info = [short(ln) for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln or "entry function" in ln
+                or "Performance" in ln]
         print(f"# [2 build] {name} built and loaded in {secs:.2f} s; "
               + " | ".join(info))
-    print(f"# [2 build] all three in {time.perf_counter() - t0:.2f} s")
+    print(f"# [2 build] all {len(loads)} in {time.perf_counter() - t0:.2f} s")
 
 
 def scan_inputs(torch, R, n, gen):
@@ -426,11 +478,26 @@ def bound(flops, flops_peak, moved) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def phase_flash(torch) -> dict:
+def visible_keys(torch, s, t, q_offset=0, causal=True, window=None, kv_len=None, **_):
+    """``(vis, dead)``: the (s, t) mask of keys each query row sees, and the
+    rows that see none."""
+    qpos = torch.arange(s, device="cuda")[:, None] + q_offset
+    kpos = torch.arange(t, device="cuda")[None, :]
+    vis = torch.ones(s, t, dtype=torch.bool, device="cuda")
+    if causal:
+        vis &= kpos <= qpos
+    if window is not None:
+        vis &= (qpos - kpos) < window
+    if kv_len is not None:
+        vis &= kpos < kv_len
+    return vis, ~vis.any(dim=1)
+
+
+def phase_flash(torch) -> tuple[dict, dict]:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
-    from repro_torch.kernels.flash_attention.kernel import BLOCK_K, BLOCK_Q
+    from repro_torch.kernels.flash_attention.kernel import kernel_instance
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2024)
@@ -453,8 +520,8 @@ def phase_flash(torch) -> dict:
                       rnd(2, 256, 2, 64), dict(window=w), 2e-5))
     # bf16 soft-cap: the plain version, like the JAX oracle, rounds the
     # logits to bf16 before the cap (its einsum returns the input type), an
-    # error of up to 0.125 in a logit near 30; the kernel, like the Pallas
-    # kernel, keeps logits in f32. So it is held against the plain version
+    # error of up to 0.125 in a logit near 30; the kernels, like the Pallas
+    # kernel, keep logits in f32. So it is held against the plain version
     # run in f32 on the same bf16 values, at the bf16 bound.
     for dt in (torch.float32, torch.bfloat16):
         cases.append((f"softcap 30 {dt}".replace("torch.", ""),
@@ -476,13 +543,36 @@ def phase_flash(torch) -> dict:
                   rnd(1, 1024, 4, 256), {}, 2e-5))
     cases.append(("gemma2 S=1024 bf16", *(rnd(1, 1024, n, 256, dtype=torch.bfloat16)
                                           for n in (8, 4, 4)), {}, 2e-2))
+    # the tensor-core instance at each of its head dims: ragged S and T (not
+    # multiples of 128 or 64), GQA groups 1, 2 and 8, a window under one
+    # tile, decode and prefill at an offset, soft-cap (against the plain
+    # version in f32, as above), fully masked rows
+    bf16 = torch.bfloat16
+    for d in (64, 128, 256):
+        for label, (b, s, t, h, hkv), kw in (
+                ("causal ragged S=T=200 group 2", (2, 200, 200, 4, 2), {}),
+                ("non-causal S=100 T=77 group 8", (1, 100, 77, 8, 1), dict(causal=False)),
+                ("causal S=T=384 group 1", (1, 384, 384, 4, 4), {}),
+                ("window 32", (2, 256, 256, 4, 2), dict(window=32)),
+                ("decode S=1", (2, 1, 300, 8, 4), dict(q_offset=171, kv_len=172)),
+                ("prefill q_offset 100 kv_len 172", (1, 130, 256, 4, 2),
+                 dict(q_offset=100, kv_len=172)),
+                ("softcap 30", (1, 256, 256, 4, 2), dict(logit_cap=30.0))):
+            scale = 3 if "logit_cap" in kw else 1
+            cases.append((f"bf16 d{d} {label}", rnd(b, s, h, d, dtype=bf16, scale=scale),
+                          rnd(b, t, hkv, d, dtype=bf16, scale=scale),
+                          rnd(b, t, hkv, d, dtype=bf16), kw, 2e-2, "logit_cap" in kw))
     # fully masked rows: a window of 4 under kv_len 32 leaves rows >= 35
     # without a key; kv_len 0 leaves every row without one
     masked = [("fully masked rows (window 4, kv_len 32)", rnd(1, 128, 4, 64),
                rnd(1, 128, 2, 64), rnd(1, 128, 2, 64), dict(window=4, kv_len=32), 2e-5),
-              ("fully masked rows (kv_len 0) bf16", *(rnd(1, 64, n, 128, dtype=torch.bfloat16)
+              ("fully masked rows (kv_len 0) bf16", *(rnd(1, 64, n, 128, dtype=bf16)
                                                       for n in (4, 1, 1)),
                dict(kv_len=0), 2e-2)]
+    masked += [(f"fully masked rows (window 4, kv_len 32) bf16 d{d}",
+                *(rnd(1, 192, n, d, dtype=bf16) for n in (4, 2, 2)),
+                dict(window=4, kv_len=32), 2e-2) for d in (64, 128, 256)]
+
     def rms_ratio(out, ref32):
         """RMS(err) / RMS(ref) against the plain version run in f32 on the
         same bf16 values: the reference's bf16 bound of 2e-2 is near the
@@ -495,9 +585,15 @@ def phase_flash(torch) -> dict:
     max_err = 0.0
     bf16_err, bf16_rms = 0.0, 0.0
     n_masked_rows = 0
+    n_wgmma = 0
     for label, q, k, v, kw, limit, *plain_in_f32 in cases + masked:
+        before = dict(flash_attention.launches_by_instance)
         out = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        want = kernel_instance(q.dtype, q.shape[3])
+        require(flash_attention.launches_by_instance[want] == before[want] + 1,
+                f"flash {label}: ran through the {want} instance")
+        n_wgmma += want == "wgmma_bf16"
         if plain_in_f32 and plain_in_f32[0]:
             ref = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
         else:
@@ -516,23 +612,45 @@ def phase_flash(torch) -> dict:
                     f"RMS(plain in f32) {scale:.3e}")
             bf16_err, bf16_rms = max(bf16_err, err), max(bf16_rms, rms / max(scale, 1e-30))
             del ref32
-        if "causal" not in kw or kw["causal"]:
-            s, t = q.shape[1], k.shape[1]
-            qpos = torch.arange(s, device="cuda")[:, None] + kw.get("q_offset", 0)
-            kpos = torch.arange(t, device="cuda")[None, :]
-            vis = (kpos <= qpos) & (kpos < kw.get("kv_len", t))
-            if "window" in kw:
-                vis &= (qpos - kpos) < kw["window"]
-            dead = ~vis.any(dim=1)
-            n_masked_rows += int(dead.sum()) * q.shape[0] * q.shape[2]
-            require(bool((out[:, dead] == 0).all()),
-                    f"flash {label}: fully masked rows are exactly 0")
+        _, dead = visible_keys(torch, q.shape[1], k.shape[1], **kw)
+        n_masked_rows += int(dead.sum()) * q.shape[0] * q.shape[2]
+        require(bool((out[:, dead] == 0).all()),
+                f"flash {label}: fully masked rows are exactly 0")
     require(n_masked_rows > 0, "the grid had fully masked rows")
+
+    # layout probes for the tensor-core instance: q = k = 0, so every
+    # visible key has weight exactly 1 before the normaliser. V[t, c] = c / 4
+    # (exact in bf16) must give every output element its column's c / 4;
+    # V[t, c] = t mod 256 every output row the mean of its visible keys'
+    # indices, to the bf16 rounding of the output (2^-8 relative). A swizzle,
+    # descriptor or transpose error moves a column or a row.
+    n_probes = 0
+    for d in (64, 128, 256):
+        b, s, t, h, hkv = 1, 300, 300, 4, 2
+        q = torch.zeros(b, s, h, d, dtype=bf16, device="cuda")
+        k = torch.zeros(b, t, hkv, d, dtype=bf16, device="cuda")
+        cols = (torch.arange(d, device="cuda", dtype=torch.float32) / 4).expand(t, d)
+        index = (torch.arange(t, device="cuda", dtype=torch.float32) % 256)[:, None].expand(t, d)
+        for probe, vals in (("column", cols), ("row", index)):
+            v = vals[None, :, None, :].expand(b, t, hkv, d).to(bf16).contiguous()
+            for kw in ({}, dict(window=40), dict(causal=False)):
+                out = flash_attention(q, k, v, **kw).float()
+                n_probes += 1
+                if probe == "column":
+                    require(torch.equal(out, cols[:1].expand(b, s, h, d)),
+                            f"flash layout probe (column) d{d} {kw}: out == c / 4")
+                else:
+                    vis, _ = visible_keys(torch, s, t, **kw)
+                    mean = (vis.double() * index[None, :, 0].double()).sum(1) / vis.sum(1)
+                    want = mean[None, :, None, None].expand(b, s, h, d).float()
+                    require(torch.allclose(out, want, rtol=2 ** -8, atol=0),
+                            f"flash layout probe (row) d{d} {kw}: out == mean visible "
+                            f"index, max |err| {(out - want).abs().max().item():.3e}")
     q, k, v = cases[0][1:4]
     a = flash_attention(q, k, v, block_q=128, block_k=128)
     bq = flash_attention(q, k, v, block_q=256, block_k=512)
     require(torch.equal(a, bq), "flash result independent of block_q/block_k")
-    n_calls = len(cases) + len(masked) + 2
+    n_calls = len(cases) + len(masked) + n_probes + 2
     require(flash_attention.launches - launches0 == n_calls,
             "flash launch counter rose once per call")
 
@@ -567,29 +685,35 @@ def phase_flash(torch) -> dict:
         bound_ms, bound_by, flops, moved = attn_bound_ms(b, s, s, h, hkv, d,
                                                          q.element_size(), peak)
         rows[dt] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, flops=flops, moved=moved, err=err, rms=rms)
+                        bound_by=bound_by, flops=flops, moved=moved, err=err, rms=rms,
+                        trace=trace(torch, lambda: flash_attention(q, k, v)))
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     f32, bf = rows[torch.float32], rows[torch.bfloat16]
-    print(f"# [7 flash] == plain on {len(cases) + len(masked)} cases (f32 2e-5, "
-          f"soft-cap 3e-5, bf16 2e-2 and RMS err <= 1e-2 RMS of the plain version "
-          f"in f32), max |err| f32 {max_err:.3e}, bf16 {bf16_err:.3e}, bf16 "
-          f"RMS err / RMS {bf16_rms:.3e}; "
-          f"{n_masked_rows} fully masked rows exactly 0; block_q/block_k "
-          f"invariant (kernel tile {BLOCK_Q}x{BLOCK_K})")
-    for name, r in (("f32", f32), ("bf16", bf)):
+    print(f"# [7 flash] == plain on {len(cases) + len(masked)} cases ({n_wgmma} through "
+          f"wgmma_bf16, the rest through simt; f32 2e-5, soft-cap 3e-5, bf16 2e-2 and "
+          f"RMS err <= 1e-2 RMS of the plain version in f32), max |err| f32 "
+          f"{max_err:.3e}, bf16 {bf16_err:.3e}, bf16 RMS err / RMS {bf16_rms:.3e}; "
+          f"{n_masked_rows} fully masked rows exactly 0; {n_probes} wgmma_bf16 layout "
+          "probes exact; block_q/block_k invariant")
+    for name, r in (("f32 (simt)", f32), ("bf16 (wgmma_bf16)", bf)):
         print(f"# [7 flash] gemma2-2b B=1 H=8/4 D=256 S=T=4096 causal {name}: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']} ({r['flops'] / 1e9:.2f} GFLOP, {r['moved'] / 1e6:.1f} MB); "
               f"kernel {r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s; max |err| {r['err']:.3e}"
               + (f", RMS err / RMS {r['rms']:.3e}" if r["rms"] is not None else ""))
-    return dict(name="flash_attention", route="cuda",
+        print(f"# [7 trace] {name}: " + trace_line(*r["trace"]))
+    common = dict(route="cuda", replaces="src/repro/kernels/flash_attention/kernel.py:113")
+    simt = dict(name="flash_attention", dtype="float32",
                 source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:113",
-                max_abs_err=max_err, ms=f32["ms"], plain_ms=f32["plain_ms"],
-                bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
-                library_ms=f32["library_ms"])
+                max_abs_err=max_err, **common,
+                **{k: f32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    wgmma = dict(name="flash_attention_bf16", dtype="bfloat16",
+                 source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
+                 max_abs_err=bf16_err, **common,
+                 **{k: bf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    return simt, wgmma
 
 
 def ssd_flops_bytes(b, s, h, p, n, chunk, nbytes):
@@ -603,7 +727,7 @@ def ssd_flops_bytes(b, s, h, p, n, chunk, nbytes):
     return flops, moved
 
 
-def phase_ssd(torch) -> dict:
+def phase_ssd(torch) -> tuple[dict, dict]:
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 
     gen = torch.Generator(device="cuda")
@@ -619,9 +743,12 @@ def phase_ssd(torch) -> dict:
     bounds = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
     launches0 = ssd_scan.launches
     n_calls, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
-    max_err = 0.0
+    abs_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    # the reference's grid, ragged last chunks, head dims 8 and 24 (not
+    # multiples of the p-tile) and mamba2-1.3b widths at both A/B lengths
     grid = [(2, 128, 8, 16, 32, 32, 4), (1, 256, 16, 32, 64, 64, 8),
             (2, 256, 8, 64, 128, 128, 8), (1, 200, 4, 64, 128, 64, 4),
+            (2, 200, 4, 8, 64, 64, 2), (1, 130, 3, 24, 32, 48, 1),
             (1, 1024, 64, 64, 128, 64, 8), (1, 4096, 64, 64, 128, 64, 8)]
     for b, s, h, p, n, chunk, hg in grid:
         for dt in (torch.float32, torch.bfloat16):
@@ -636,8 +763,7 @@ def phase_ssd(torch) -> dict:
             worst[dt] = max(worst[dt], err)
             require(err < bounds[dt], f"ssd b{b} s{s} h{h} p{p} n{n} chunk {chunk} "
                     f"{dt}: max err / max|y| {err:.3e} < {bounds[dt]}")
-            if dt == torch.float32:
-                max_err = max(max_err, (y - yr).abs().max().item())
+            abs_err[dt] = max(abs_err[dt], (y.float() - yr.float()).abs().max().item())
     # head_group is a TPU tiling choice: the result must not depend on it
     x, dta, B, C = inputs(1, 256, 16, 32, 64, torch.float32)
     require(torch.equal(ssd_scan(x, dta, B, C, chunk=64, head_group=1),
@@ -661,35 +787,46 @@ def phase_ssd(torch) -> dict:
     require(ssd_scan.launches - launches0 == n_calls,
             "ssd launch counter rose once per call")
 
-    b, s, h, p, n, chunk = 1, 4096, 64, 64, 128, 64     # mamba2-1.3b, A/B chunk
+    h, p, n, chunk = 64, 64, 128, 64                     # mamba2-1.3b, A/B chunk
     rows = {}
-    for dt in (torch.float32, torch.bfloat16):
-        x, dta, B, C = inputs(b, s, h, p, n, dt)
-        ms = cuda_ms(lambda: ssd_scan(x, dta, B, C, chunk=chunk, head_group=8), 20)
-        plain_ms = cuda_ms(lambda: ssd_chunked(x, dta, B, C, chunk), 5)
-        flops, moved = ssd_flops_bytes(b, s, h, p, n, chunk, x.element_size())
-        peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
-        bound_ms, bound_by = bound(flops, peak, moved)
-        rows[dt] = dict(ms=ms, plain_ms=plain_ms, flops=flops, moved=moved,
-                        bound_ms=bound_ms, bound_by=bound_by)
-    f32 = rows[torch.float32]
+    for s in AB_SEQS:
+        for dt in (torch.float32, torch.bfloat16):
+            x, dta, B, C = inputs(1, s, h, p, n, dt)
+            ms = cuda_ms(lambda: ssd_scan(x, dta, B, C, chunk=chunk, head_group=8), 20)
+            plain_ms = cuda_ms(lambda: ssd_chunked(x, dta, B, C, chunk), 5)
+            flops, moved = ssd_flops_bytes(1, s, h, p, n, chunk, x.element_size())
+            peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
+            bound_ms, bound_by = bound(flops, peak, moved)
+            rows[s, dt] = dict(ms=ms, plain_ms=plain_ms, flops=flops, moved=moved,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               trace=trace(torch, lambda: ssd_scan(x, dta, B, C, chunk=chunk)))
     print(f"# [8 ssd] == plain on {n_calls - 3} cases (max err / max|y| f32 "
           f"{worst[torch.float32]:.3e} < 1e-5, bf16 {worst[torch.bfloat16]:.3e} < 3e-2), "
-          f"max |err| f32 {max_err:.3e}; == sequential recurrence (2e-4); "
+          f"max |err| f32 {abs_err[torch.float32]:.3e}, bf16 {abs_err[torch.bfloat16]:.3e}; "
+          "== sequential recurrence (2e-4); "
           "head_group invariant")
-    for name, r in (("f32", f32), ("bf16", rows[torch.bfloat16])):
-        print(f"# [8 ssd] mamba2-1.3b b=1 s=4096 h=64 p=64 n=128 chunk 64 {name}: "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['flops'] / 1e9:.2f} GFLOP, "
-              f"{r['moved'] / 1e6:.1f} MB); kernel {r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s")
-    return dict(name="ssd_scan", route="cuda",
-                source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
-                replaces="src/repro/kernels/ssd_scan/kernel.py:88",
-                max_abs_err=max_err, ms=f32["ms"], plain_ms=f32["plain_ms"],
-                bound_ms=f32["bound_ms"], bound_by=f32["bound_by"], library_ms=None)
+    for (s, dt), r in rows.items():
+        print(f"# [8 ssd] mamba2-1.3b b=1 s={s} h=64 p=64 n=128 chunk 64 "
+              f"{str(dt).replace('torch.', '')}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({r['flops'] / 1e9:.2f} GFLOP, {r['moved'] / 1e6:.1f} MB); kernel "
+              f"{r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s")
+        print(f"# [8 trace] s={s} {str(dt).replace('torch.', '')}: " + trace_line(*r["trace"]))
+    out = []
+    for name, dt in (("ssd_scan", torch.float32), ("ssd_scan_bf16", torch.bfloat16)):
+        r = rows[AB_SEQS[-1], dt]
+        out.append(dict(name=name, dtype=str(dt).replace("torch.", ""), route="cuda",
+                        source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                        replaces="src/repro/kernels/ssd_scan/kernel.py:88",
+                        max_abs_err=abs_err[dt], ms=r["ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+    return tuple(out)
 
 
-def phase_ab(torch) -> dict:
+def phase_ab(torch, dtype="float32") -> dict:
+    """The kernel guideline family at ``dtype`` (the reference's float32,
+    or bfloat16, which the tensor-core flash instance serves); returns the
+    main path's launch counts: by op, and flash by instance."""
     import dataclasses
     import tempfile
 
@@ -716,26 +853,31 @@ def phase_ab(torch) -> dict:
     agree = []
     for op, _, widths in runs:
         for seq in AB_SEQS:
-            fn = {impl: make_benchmark_op(op, impl, seq=seq, batch=1, seed=0, **widths)
+            fn = {impl: make_benchmark_op(op, impl, seq=seq, batch=1, seed=0,
+                                          dtype=getattr(torch, dtype), **widths)
                   for impl in ("cuda", "ref")}
             require(all(torch.equal(a, b) for a, b in
                         zip(fn["cuda"].inputs, fn["ref"].inputs)),
                     f"A/B {op}@{seq}: both sides draw the same inputs")
             out, ref = fn["cuda"](), fn["ref"]()
+            out, ref = out.float(), ref.float()
             require(out.shape == ref.shape and torch.isfinite(out).all(),
                     f"A/B {op}@{seq}: finite, shape")
             if op == "flash_attention":
                 err = (out - ref).abs().max().item()
-                require(torch.allclose(out, ref, rtol=2e-5, atol=2e-5),
-                        f"A/B {op}@{seq}: #cuda == #ref, max |err| {err:.3e} within 2e-5")
+                lim = 2e-5 if dtype == "float32" else 2e-2
+                require(torch.allclose(out, ref, rtol=lim, atol=lim),
+                        f"A/B {op}@{seq}: #cuda == #ref, max |err| {err:.3e} within {lim}")
             else:
                 err = rel_err(out, ref)
-                require(err < 1e-5, f"A/B {op}@{seq}: #cuda == #ref, max err / "
-                        f"max|y| {err:.3e} < 1e-5")
+                lim = 1e-5 if dtype == "float32" else 3e-2
+                require(err < lim, f"A/B {op}@{seq}: #cuda == #ref, max err / "
+                        f"max|y| {err:.3e} < {lim}")
             agree.append(f"{op}@{seq} {err:.3e}")
             del fn, out, ref
             torch.cuda.empty_cache()
-    print("# [9 A/B] the timed #cuda and #ref callables agree on the A/B's inputs "
+    tag = f"[9 A/B {dtype}]"
+    print(f"# {tag} the timed #cuda and #ref callables agree on the A/B's inputs "
           "(flash max |err|, ssd max err / max|y|): " + ", ".join(agree))
 
     reports, walls = {}, {}
@@ -743,11 +885,12 @@ def phase_ab(torch) -> dict:
         path = Path(tmp) / "ab.jsonl"
         torch.cuda.synchronize()
         flash_attention.launches = ssd_scan.launches = 0
+        flash_attention.launches_by_instance.update(wgmma_bf16=0, simt=0)
         for op, kernel, widths in runs:
-            backend = TorchKernelBackend(batch=1, seed0=0, **widths)
+            backend = TorchKernelBackend(batch=1, seed0=0, dtype=dtype, **widths)
             t = time.perf_counter()
             report = verify_guidelines([family[op]], backend, design=design,
-                                       store=ResultStore(path), name=f"ab-{op}")
+                                       store=ResultStore(path), name=f"ab-{op}-{dtype}")
             torch.cuda.synchronize()
             walls[op] = time.perf_counter() - t
             reports[op] = report
@@ -755,14 +898,18 @@ def phase_ab(torch) -> dict:
                     f"A/B {op}: every cell measured ({report.n_measured})")
             require(all(v.n_epochs == design.n_launch_epochs for v in report.verdicts),
                     f"A/B {op}: every cell has one record per epoch")
-            print(format_report(report, title=f"kernel A/B [{op}] {widths}"))
+            print(format_report(report, title=f"kernel A/B [{op}, {dtype}] {widths}"))
             if not report.ok:
                 print(format_violations(report))
         launches = dict(flash_attention=flash_attention.launches,
-                        ssd_scan=ssd_scan.launches)
+                        ssd_scan=ssd_scan.launches,
+                        **flash_attention.launches_by_instance)
         snap = ResultStore(path).snapshot()
-    for op, n in launches.items():
-        require(n > 0, f"A/B {op}: the kernel launched on the #cuda side")
+    for op in ("flash_attention", "ssd_scan"):
+        require(launches[op] > 0, f"A/B {op}: the kernel launched on the #cuda side")
+    instance = "simt" if dtype == "float32" else "wgmma_bf16"
+    require(launches[instance] == launches["flash_attention"],
+            f"A/B flash_attention {dtype}: every launch through the {instance} instance")
     n_records = sum(len(r) for r in snap.records.values())
     expect = sum(r.n_measured for r in reports.values())
     require(n_records == expect,
@@ -777,14 +924,16 @@ def phase_ab(torch) -> dict:
         reps = {impl: sum(r.times.size for r in recs if r.case.op.endswith(impl))
                 for impl in ("#cuda", "#ref")}
         build = sum(r.meta["build_s"] for r in recs)
-        print(f"# [9 A/B] {op}: wall {walls[op]:.2f} s = building inputs "
+        print(f"# {tag} {op}: wall {walls[op]:.2f} s = building inputs "
               f"{build:.2f} s ({len(recs)} builds) + timed kernel calls "
               f"{timed['#cuda']:.2f} s ({reps['#cuda']} calls) + timed plain calls "
               f"{timed['#ref']:.2f} s ({reps['#ref']} calls) + rest (warm-ups, "
               f"epoch isolation, store, statistics) "
               f"{walls[op] - build - timed['#cuda'] - timed['#ref']:.2f} s; "
               f"kernel launches {launches[op]}")
-    print(f"# [9 A/B] store reloaded with {n_records} records; verdicts: " + ", ".join(
+    print(f"# {tag} store reloaded with {n_records} records; flash launches by "
+          f"instance {launches['simt']} simt, {launches['wgmma_bf16']} wgmma_bf16; "
+          "verdicts: " + ", ".join(
         f"{v.guideline.name}@{v.msize} {v.verdict} ratio {v.ratio:.3f}"
         for r in reports.values() for v in r.verdicts))
     return launches
@@ -805,12 +954,15 @@ def main() -> int:
     phase_engines(torch)
     phase_gate(torch)
     kernel["launches"] = phase_main_path(torch)
-    flash = phase_flash(torch)
-    ssd = phase_ssd(torch)
-    launches = phase_ab(torch)
-    flash["launches"] = launches["flash_attention"]
-    ssd["launches"] = launches["ssd_scan"]
-    print(json.dumps({"kernels": [kernel, flash, ssd]}))
+    flash, flash_bf16 = phase_flash(torch)
+    ssd, ssd_bf16 = phase_ssd(torch)
+    # the A/B path in the reference's f32 (the CUDA-core flash instance),
+    # then in bf16 (the tensor-core one); counts are reset before each
+    ab32 = phase_ab(torch, "float32")
+    ab16 = phase_ab(torch, "bfloat16")
+    flash["launches"], flash_bf16["launches"] = ab32["simt"], ab16["wgmma_bf16"]
+    ssd["launches"], ssd_bf16["launches"] = ab32["ssd_scan"], ab16["ssd_scan"]
+    print(json.dumps({"kernels": [kernel, flash, flash_bf16, ssd, ssd_bf16]}))
     print(f"# total {time.perf_counter() - t0:.1f} s")
     print(smi())
     print(json.dumps({"ok": True, "device": {

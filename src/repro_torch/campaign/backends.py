@@ -345,6 +345,9 @@ class TorchKernelBackend:
     ``device`` in place of ``interpret``: ``"cuda"`` (the default) or
     ``"cpu"``, where each kernel's wrapper runs its plain version.
     Constructing a CUDA backend on a machine without a GPU raises.
+    ``dtype`` (``"float32"``, the reference's, or ``"bfloat16"``) is the
+    type the inputs are cast to after the draw; it is the factor set's
+    ``dtype``.
     """
 
     impl: str = "cuda"                # cuda | ref
@@ -359,6 +362,7 @@ class TorchKernelBackend:
         default_factory=lambda: MeterConfig(epoch_isolation="clear_caches",
                                             warmup=1))
     name: str = "kernel"
+    dtype: str = "float32"            # float32 | bfloat16
     _last_epoch: Any = field(default=None, init=False, repr=False,
                              compare=False)
     _build_s: dict = field(default_factory=dict, init=False, repr=False,
@@ -368,6 +372,9 @@ class TorchKernelBackend:
         if self.impl not in IMPLS:
             raise ValueError(f"TorchKernelBackend: impl must be one of "
                              f"{IMPLS}, got {self.impl!r}")
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"TorchKernelBackend: dtype must be float32 or "
+                             f"bfloat16, got {self.dtype!r}")
         resolve_device(self.device)
 
     def make_epoch(self, epoch: int) -> TorchEpochContext:
@@ -389,7 +396,8 @@ class TorchKernelBackend:
                 t.op, t.impl or self.impl, seq=t.msize(msize),
                 batch=self.batch, heads=self.heads, kv_heads=self.kv_heads,
                 head_dim=self.head_dim, state_dim=self.state_dim,
-                seed=self.seed0 + epoch, device=resolve_device(self.device)))
+                dtype=getattr(torch, self.dtype), seed=self.seed0 + epoch,
+                device=resolve_device(self.device)))
         return _sequence_calls(fns)
 
     def measure(self, ctx: TorchEpochContext, case: TestCase,
@@ -420,6 +428,7 @@ class TorchKernelBackend:
             device_kind=(torch.cuda.get_device_name(dev)
                          if dev.type == "cuda" else "cpu"),
             measurement_backend=self.name,
+            dtype=self.dtype,
             sync_method="cuda_synchronize",
             epoch_isolation=self.meter.epoch_isolation,
             buffer_policy="cold" if self.meter.cold_buffers else "warm",

@@ -1,11 +1,23 @@
-"""Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the Hopper flash-attention kernels (``csrc/*.cu``).
 
 :func:`flash_attention` takes model layout, q ``(B, S, H, D)`` and k/v
 ``(B, T, Hkv, D)``, in float32 or bfloat16. On CUDA tensors it launches
-the kernel on the current stream, or raises; on CPU tensors it runs the
-plain version (:func:`.ref.flash_attention_ref`). There is no other path:
-a kernel that fails to build or launch raises, it is never replaced by
-the plain version.
+one of two kernels on the current stream, or raises; on CPU tensors it
+runs the plain version (:func:`.ref.flash_attention_ref`). There is no
+other path: a kernel that fails to build or launch raises, it is never
+replaced by the plain version.
+
+The two instances (:func:`kernel_instance`):
+
+* ``wgmma_bf16`` (``csrc/flash_attention_sm90.cu``): bf16 at head dims
+  64, 128 and 256, on the tensor cores, fed by TMA. TMA wants 16-byte
+  aligned starts and strides, so q, k and v must have unit stride over
+  head_dim, every other stride (of a dimension longer than 1) a multiple
+  of 8 elements and a 16-byte aligned start; anything else raises
+  ``ValueError``.
+* ``simt`` (``csrc/flash_attention.cu``): float32 at every head dim, and
+  bf16 at head dims 16 and 32, on the CUDA cores (strides a multiple of
+  4 elements).
 """
 
 from __future__ import annotations
@@ -20,17 +32,23 @@ import torch
 from ..build import build_library
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention", "load_kernel", "BLOCK_Q", "BLOCK_K",
-           "HEAD_DIMS"]
+__all__ = ["flash_attention", "load_kernel", "load_kernel_sm90",
+           "kernel_instance", "check_kernel_layout", "BLOCK_Q", "BLOCK_K",
+           "HEAD_DIMS", "WGMMA_HEAD_DIMS"]
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCE = _CSRC / "flash_attention.cu"
+_SOURCE_SM90 = _CSRC / "flash_attention_sm90.cu"
 
-#: The kernel's own tile: query rows per CTA and keys per shared-memory
-#: tile. ``block_q``/``block_k`` of the call do not change it.
+#: The CUDA-core kernel's own tile: query rows per CTA and keys per
+#: shared-memory tile (the tensor-core kernel's are 128 and 64).
+#: ``block_q``/``block_k`` of the call change neither.
 BLOCK_Q = 64
 BLOCK_K = 64
-#: Head dims the kernel is built for.
+#: Head dims the kernels are built for.
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: Head dims at which bf16 runs on the tensor cores.
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NO_LIMIT = 1 << 40     # "no window" / "no kv_len" for the kernel's masks
 
@@ -51,6 +69,28 @@ def load_kernel() -> tuple[ctypes.CDLL, str]:
                    + [ctypes.c_int] + [ctypes.c_longlong] * 3
                    + [ctypes.c_void_p])
     return lib, log
+
+
+@functools.lru_cache(maxsize=1)
+def load_kernel_sm90() -> tuple[ctypes.CDLL, str]:
+    """Build (at first use) and load the tensor-core kernel; returns
+    ``(lib, log)``."""
+    lib, log = build_library(_SOURCE_SM90, {})
+    fn = lib.flash_attention_sm90_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_float] * 2
+                   + [ctypes.c_int] + [ctypes.c_longlong] * 3
+                   + [ctypes.c_void_p])
+    return lib, log
+
+
+def kernel_instance(dtype, head_dim: int) -> str:
+    """Which kernel a CUDA call launches: ``"wgmma_bf16"`` for bf16 at
+    :data:`WGMMA_HEAD_DIMS`, ``"simt"`` otherwise."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma_bf16"
+    return "simt"
 
 
 def _check(q, k, v):
@@ -75,20 +115,37 @@ def _check(q, k, v):
                              f"on {q.device}")
 
 
-def _check_kernel_layout(q, k, v):
+def _strides(x) -> tuple[int, int, int]:
+    """x's (batch, seq, head) strides, with the stride of a dimension of
+    length 1 (never stepped over) replaced by head_dim, so that it passes
+    the alignment rules whatever torch reports for it."""
+    return tuple(st if n > 1 else x.shape[3]
+                 for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
+def check_kernel_layout(q, k, v) -> str:
+    """Raise unless the kernels take these tensors; returns the instance
+    (:func:`kernel_instance`) a CUDA call would launch. Checks type, head
+    dim and layout only, so it runs on tensors on any device."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: the kernel takes float32 or "
                         f"bfloat16, got {q.dtype}")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernel is built for head "
                          f"dims {HEAD_DIMS}, got {q.shape[3]}")
+    instance = kernel_instance(q.dtype, q.shape[3])
+    multiple = 8 if instance == "wgmma_bf16" else 4
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if (x.stride(3) != 1 or any(st % 4 for st in x.stride()[:3])
+        if (x.stride(3) != 1 or any(st % multiple for st in _strides(x))
                 or x.data_ptr() % 16):
+            why = ("TMA loads 16-byte rows" if instance == "wgmma_bf16"
+                   else "the kernel loads four elements at a time")
             raise ValueError(f"flash_attention: {name} must have unit stride "
-                             "over head_dim, other strides a multiple of 4 "
-                             "and a 16-byte aligned start (the kernel loads "
-                             "four elements at a time)")
+                             f"over head_dim, other strides a multiple of "
+                             f"{multiple} elements and a 16-byte aligned "
+                             f"start for the {instance} kernel ({why}); got "
+                             f"strides {tuple(x.stride())}")
+    return instance
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, logit_cap=0.0,
@@ -97,9 +154,13 @@ def flash_attention(q, k, v, *, causal=True, window=None, logit_cap=0.0,
 
     Same contract as :func:`.ref.flash_attention_ref`. ``window``,
     ``q_offset`` and ``kv_len`` are runtime integers. ``block_q`` and
-    ``block_k`` are accepted for the reference's signature; the kernel
-    tiles by :data:`BLOCK_Q` x :data:`BLOCK_K` whatever they are. Counts
-    each kernel launch in ``flash_attention.launches``.
+    ``block_k`` are accepted for the reference's signature; the kernels
+    tile by their own sizes whatever they are. On CUDA tensors, bf16 at
+    head dims 64, 128 and 256 launches the tensor-core kernel
+    (``wgmma_bf16``); float32 at every head dim, and bf16 at head dims 16
+    and 32, launch the CUDA-core kernel (``simt``). Counts each launch in
+    ``flash_attention.launches`` and, by instance, in
+    ``flash_attention.launches_by_instance``.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -108,30 +169,38 @@ def flash_attention(q, k, v, *, causal=True, window=None, logit_cap=0.0,
                                    kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    _check_kernel_layout(q, k, v)
+    instance = check_kernel_layout(q, k, v)
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
-                                       *v.stride()[:3], *o.stride()[:3])
-    lib, _ = load_kernel()
+    strides = (ctypes.c_longlong * 12)(*_strides(q), *_strides(k),
+                                       *_strides(v), *o.stride()[:3])
+    masks = (1.0 / math.sqrt(d),
+             float(logit_cap) if logit_cap and logit_cap > 0 else 0.0,
+             int(bool(causal)), _clamp(q_offset),
+             _NO_LIMIT if window is None else _clamp(window),
+             _NO_LIMIT if kv_len is None else _clamp(kv_len))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPES[q.dtype], b, s, t, h, hkv, d, strides,
-            1.0 / math.sqrt(d),
-            float(logit_cap) if logit_cap and logit_cap > 0 else 0.0,
-            int(bool(causal)), _clamp(q_offset),
-            _NO_LIMIT if window is None else _clamp(window),
-            _NO_LIMIT if kv_len is None else _clamp(kv_len), stream)
+        if instance == "wgmma_bf16":
+            lib, _ = load_kernel_sm90()
+            err = lib.flash_attention_sm90_launch(*ptrs, b, s, t, h, hkv, d,
+                                                  strides, *masks, stream)
+        else:
+            lib, _ = load_kernel()
+            err = lib.flash_attention_launch(*ptrs, _DTYPES[q.dtype], b, s, t,
+                                             h, hkv, d, strides, *masks,
+                                             stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention {instance} kernel launch "
+                           f"failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_instance[instance] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_instance = {"wgmma_bf16": 0, "simt": 0}

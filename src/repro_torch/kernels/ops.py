@@ -42,7 +42,8 @@ def make_benchmark_op(op: str, impl: str = "cuda", *, seq: int,
     The inputs are drawn with numpy in the reference's order and scale
     (``default_rng(seed + 7919 * seq)``; q, k, v for attention, x, dta, B,
     C for SSD), so one seed gives the reference's float32 inputs bit for
-    bit; the callable exposes them as ``.inputs``. Block and chunk sizes
+    bit (``dtype=torch.bfloat16`` casts them, dta kept in f32); the
+    callable exposes them as ``.inputs``. Block and chunk sizes
     are clamped as the reference clamps them (128 and 64 past those
     lengths, ``head_group = min(heads, 8)``); the kernels take any
     ``seq``, so no length is refused.
@@ -74,7 +75,9 @@ def make_benchmark_op(op: str, impl: str = "cuda", *, seq: int,
         chunk = seq if seq <= 64 else 64
         hg = heads if heads <= 8 else 8
         x = _t(batch, seq, heads, head_dim)
-        dta = -torch.abs(_t(batch, seq, heads, scale=0.5)) - 0.05
+        # the kernels take dta in f32 whatever x's type: in bf16 it holds
+        # the reference's bf16 values
+        dta = (-torch.abs(_t(batch, seq, heads, scale=0.5)) - 0.05).float()
         B = _t(batch, seq, state_dim)
         C = _t(batch, seq, state_dim)
         inputs = (x, dta, B, C)

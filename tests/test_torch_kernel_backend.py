@@ -123,6 +123,22 @@ def test_benchmark_inputs_bit_equal_and_plain_output_equal(op, seq, seed):
                                                     device="cpu")().numpy(), y)
 
 
+@pytest.mark.parametrize("op", BENCHMARK_OPS)
+def test_benchmark_inputs_in_bf16_are_the_reference_draws_cast(op):
+    """``dtype=torch.bfloat16`` casts the draws as the reference's factory
+    does with ``dtype=jnp.bfloat16``; dta stays in f32, which the kernels
+    take, holding the same bf16 values."""
+    kw = dict(SMALL, seq=64, seed=1)
+    if op == "ssd_scan":
+        kw["kv_heads"] = None
+    ref_fn = jax_benchmark_op(op, "ref", **kw, dtype=jnp.bfloat16)
+    ours = make_benchmark_op(op, "ref", **kw, dtype=torch.bfloat16, device="cpu")
+    names = ("q", "k", "v") if op == "flash_attention" else ("x", "dta", "B", "C")
+    for name, a, t in zip(names, _reference_inputs(ref_fn), ours.inputs, strict=True):
+        assert t.dtype == (torch.float32 if name == "dta" else torch.bfloat16), name
+        np.testing.assert_array_equal(t.float().numpy(), np.asarray(a, np.float32))
+
+
 def test_tensors_from_reference_carry_values_exactly():
     rng = np.random.default_rng(0)
     a = rng.normal(size=(3, 4)).astype(np.float32)
@@ -185,6 +201,18 @@ def test_factors_name_the_port_and_separate_impls():
     ref_f = ref_campaign.KernelBackend(heads=2, kv_heads=1, head_dim=16,
                                        state_dim=16).factors(DESIGN)
     assert f.fingerprint() != ref_f.fingerprint()
+
+
+def test_factors_carry_the_inputs_type():
+    """The inputs' type is the factor set's ``dtype``: f32 campaigns keep
+    the reference's default (and so their fingerprint), bf16 ones differ."""
+    f32 = _cpu_backend().factors(DESIGN)
+    bf16 = _cpu_backend(dtype="bfloat16").factors(DESIGN)
+    assert f32.dtype == "float32" and bf16.dtype == "bfloat16"
+    assert f32.fingerprint() == _cpu_backend(dtype="float32").factors(DESIGN).fingerprint()
+    assert bf16.fingerprint() != f32.fingerprint()
+    with pytest.raises(ValueError, match="dtype"):
+        _cpu_backend(dtype="float16")
 
 
 def test_half_is_refused():
