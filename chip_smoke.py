@@ -9,9 +9,11 @@ A/B campaign) at sizes users run, and check what comes out.
 Phases, each of which raises (exit code 1) on failure:
 
   1. device: the card's name and power limit, torch / CUDA / nvcc versions;
-  2. build: the ``sim_scan``, ``flash_attention`` (CUDA cores),
-     ``flash_attention_sm90`` (tensor cores, bf16) and ``ssd_scan`` CUDA
-     sources, from ``src/repro_torch/kernels`` into ``build/kernels/``,
+  2. build: the ``sim_scan``, ``flash_attention`` (CUDA cores, bf16 at
+     head dims 16 and 32), ``flash_attention_sm90`` (tensor cores, bf16),
+     ``flash_attention_tf32`` (tensor cores, f32 in 3xTF32) and
+     ``ssd_scan`` CUDA sources, from ``src/repro_torch/kernels`` into
+     ``build/kernels/``,
      one ``nvcc`` each, all started together; each build's time and its
      ptxas lines (registers, spills, shared memory, performance warnings);
   3. ``sim_scan`` against its plain version on the card over a grid of
@@ -29,12 +31,13 @@ Phases, each of which raises (exit code 1) on failure:
   7. ``flash_attention`` against its plain version on the card over the
      reference's shape grid (GQA, MQA, MHA, head dims 16-256), f32 and
      bf16, sliding window, soft-cap, decode, ragged and fully masked rows
-     (which must be 0), at the reference's bounds, plus the tensor-core
-     instance's own grid at head dims 64, 128 and 256 and its layout
-     probes; each call checked to have run through the instance its type
-     and head dim select; then both instances' times at gemma2-2b widths
-     (S = T = 4096, causal) beside the bound, the plain version and
-     ``scaled_dot_product_attention``;
+     (which must be 0), at the reference's bounds, plus the bf16
+     tensor-core instance's own grid at head dims 64, 128 and 256, the f32
+     (3xTF32) instance's on the same grid at head dims 16-256, and both
+     instances' layout probes; each call checked to have run through the
+     instance its type and head dim select; then the f32 and bf16 times
+     at gemma2-2b widths (S = T = 4096, causal) beside the bound, the
+     plain version and ``scaled_dot_product_attention``;
   8. ``ssd_scan`` against its plain version over the reference's grid,
      head dims that are not multiples of the p-tile, ragged chunks and the
      sequential recurrence, f32 and bf16; then its times at mamba2-1.3b
@@ -44,7 +47,8 @@ Phases, each of which raises (exit code 1) on failure:
      (``flash_attention#cuda ⪯ flash_attention#ref``, ``ssd_scan#cuda ⪯
      ssd_scan#ref``) through ``verify_guidelines`` at gemma2-2b and
      mamba2-1.3b widths, S in {1024, 4096}, with a store, first in the
-     reference's f32, then in bf16 (the tensor-core flash instance); a
+     reference's f32 (the 3xTF32 flash instance), then in bf16 (the
+     bf16 tensor-core flash instance); a
      violated guideline (a kernel slower than its plain version) is
      printed, not failed;
  10. a ``kernels`` JSON line for every kernel of both paths, flash and
@@ -70,6 +74,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP64_FLOPS = 34e12          # H100 SXM float64 outside the tensor cores
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM TF32 tensor cores, dense (3 per f32 FLOP in 3xTF32)
 BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 
 # gemma2-2b attention widths (src/repro/configs/gemma2_2b.py): 8 query
@@ -183,6 +188,7 @@ def phase_build():
 
     from repro_torch.kernels.flash_attention.kernel import load_kernel as load_flash
     from repro_torch.kernels.flash_attention.kernel import load_kernel_sm90 as load_flash90
+    from repro_torch.kernels.flash_attention.kernel import load_kernel_tf32 as load_flash32
     from repro_torch.kernels.sim_scan.kernel import load_kernel as load_sim
     from repro_torch.kernels.ssd_scan.kernel import load_kernel as load_ssd
 
@@ -193,7 +199,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     loads = dict(sim_scan=load_sim, flash_attention=load_flash,
-                 flash_attention_sm90=load_flash90, ssd_scan=load_ssd)
+                 flash_attention_sm90=load_flash90, flash_attention_tf32=load_flash32,
+                 ssd_scan=load_ssd)
     with ThreadPoolExecutor(len(loads)) as pool:     # one nvcc per source at once
         futures = {name: pool.submit(timed, load) for name, load in loads.items()}
         results = {name: f.result() for name, f in futures.items()}
@@ -547,21 +554,27 @@ def phase_flash(torch) -> tuple[dict, dict]:
     # multiples of 128 or 64), GQA groups 1, 2 and 8, a window under one
     # tile, decode and prefill at an offset, soft-cap (against the plain
     # version in f32, as above), fully masked rows
+    # (the f32 tensor-core instance on the same grid at every head dim, at
+    # the f32 bounds: 2e-5, 3e-5 with soft-cap, against the plain version)
     bf16 = torch.bfloat16
-    for d in (64, 128, 256):
-        for label, (b, s, t, h, hkv), kw in (
-                ("causal ragged S=T=200 group 2", (2, 200, 200, 4, 2), {}),
-                ("non-causal S=100 T=77 group 8", (1, 100, 77, 8, 1), dict(causal=False)),
-                ("causal S=T=384 group 1", (1, 384, 384, 4, 4), {}),
-                ("window 32", (2, 256, 256, 4, 2), dict(window=32)),
-                ("decode S=1", (2, 1, 300, 8, 4), dict(q_offset=171, kv_len=172)),
-                ("prefill q_offset 100 kv_len 172", (1, 130, 256, 4, 2),
-                 dict(q_offset=100, kv_len=172)),
-                ("softcap 30", (1, 256, 256, 4, 2), dict(logit_cap=30.0))):
-            scale = 3 if "logit_cap" in kw else 1
-            cases.append((f"bf16 d{d} {label}", rnd(b, s, h, d, dtype=bf16, scale=scale),
-                          rnd(b, t, hkv, d, dtype=bf16, scale=scale),
-                          rnd(b, t, hkv, d, dtype=bf16), kw, 2e-2, "logit_cap" in kw))
+    grid = (("causal ragged S=T=200 group 2", (2, 200, 200, 4, 2), {}),
+            ("non-causal S=100 T=77 group 8", (1, 100, 77, 8, 1), dict(causal=False)),
+            ("causal S=T=384 group 1", (1, 384, 384, 4, 4), {}),
+            ("window 32", (2, 256, 256, 4, 2), dict(window=32)),
+            ("decode S=1", (2, 1, 300, 8, 4), dict(q_offset=171, kv_len=172)),
+            ("prefill q_offset 100 kv_len 172", (1, 130, 256, 4, 2),
+             dict(q_offset=100, kv_len=172)),
+            ("softcap 30", (1, 256, 256, 4, 2), dict(logit_cap=30.0)))
+    for dt, dims in ((bf16, (64, 128, 256)), (torch.float32, (16, 32, 64, 128, 256))):
+        for d in dims:
+            for label, (b, s, t, h, hkv), kw in grid:
+                scale = 3 if "logit_cap" in kw else 1
+                limit = 2e-2 if dt == bf16 else (3e-5 if "logit_cap" in kw else 2e-5)
+                cases.append((f"{str(dt)[6:]} d{d} {label}",
+                              rnd(b, s, h, d, dtype=dt, scale=scale),
+                              rnd(b, t, hkv, d, dtype=dt, scale=scale),
+                              rnd(b, t, hkv, d, dtype=dt), kw, limit,
+                              dt == bf16 and "logit_cap" in kw))
     # fully masked rows: a window of 4 under kv_len 32 leaves rows >= 35
     # without a key; kv_len 0 leaves every row without one
     masked = [("fully masked rows (window 4, kv_len 32)", rnd(1, 128, 4, 64),
@@ -572,6 +585,11 @@ def phase_flash(torch) -> tuple[dict, dict]:
     masked += [(f"fully masked rows (window 4, kv_len 32) bf16 d{d}",
                 *(rnd(1, 192, n, d, dtype=bf16) for n in (4, 2, 2)),
                 dict(window=4, kv_len=32), 2e-2) for d in (64, 128, 256)]
+    masked += [(f"fully masked rows (window 4, kv_len 32) f32 d{d}",
+                *(rnd(1, 192, n, d) for n in (4, 2, 2)),
+                dict(window=4, kv_len=32), 2e-5) for d in (16, 32, 64, 128, 256)]
+    masked.append(("fully masked rows (kv_len 0) f32", *(rnd(1, 64, n, 256) for n in (4, 1, 1)),
+                   dict(kv_len=0), 2e-5))
 
     def rms_ratio(out, ref32):
         """RMS(err) / RMS(ref) against the plain version run in f32 on the
@@ -585,7 +603,7 @@ def phase_flash(torch) -> tuple[dict, dict]:
     max_err = 0.0
     bf16_err, bf16_rms = 0.0, 0.0
     n_masked_rows = 0
-    n_wgmma = 0
+    by_instance = dict.fromkeys(flash_attention.launches_by_instance, 0)
     for label, q, k, v, kw, limit, *plain_in_f32 in cases + masked:
         before = dict(flash_attention.launches_by_instance)
         out = flash_attention(q, k, v, **kw)
@@ -593,7 +611,7 @@ def phase_flash(torch) -> tuple[dict, dict]:
         want = kernel_instance(q.dtype, q.shape[3])
         require(flash_attention.launches_by_instance[want] == before[want] + 1,
                 f"flash {label}: ran through the {want} instance")
-        n_wgmma += want == "wgmma_bf16"
+        by_instance[want] += 1
         if plain_in_f32 and plain_in_f32[0]:
             ref = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
         else:
@@ -618,46 +636,55 @@ def phase_flash(torch) -> tuple[dict, dict]:
                 f"flash {label}: fully masked rows are exactly 0")
     require(n_masked_rows > 0, "the grid had fully masked rows")
 
-    # layout probes for the tensor-core instance: q = k = 0, so every
+    # layout probes for the tensor-core instances: q = k = 0, so every
     # visible key has weight exactly 1 before the normaliser. V[t, c] = c / 4
-    # (exact in bf16) must give every output element its column's c / 4;
-    # V[t, c] = t mod 256 every output row the mean of its visible keys'
-    # indices, to the bf16 rounding of the output (2^-8 relative). A swizzle,
-    # descriptor or transpose error moves a column or a row.
-    n_probes = 0
-    for d in (64, 128, 256):
-        b, s, t, h, hkv = 1, 300, 300, 4, 2
-        q = torch.zeros(b, s, h, d, dtype=bf16, device="cuda")
-        k = torch.zeros(b, t, hkv, d, dtype=bf16, device="cuda")
-        cols = (torch.arange(d, device="cuda", dtype=torch.float32) / 4).expand(t, d)
-        index = (torch.arange(t, device="cuda", dtype=torch.float32) % 256)[:, None].expand(t, d)
-        for probe, vals in (("column", cols), ("row", index)):
-            v = vals[None, :, None, :].expand(b, t, hkv, d).to(bf16).contiguous()
-            for kw in ({}, dict(window=40), dict(causal=False)):
-                out = flash_attention(q, k, v, **kw).float()
-                n_probes += 1
-                if probe == "column":
-                    require(torch.equal(out, cols[:1].expand(b, s, h, d)),
-                            f"flash layout probe (column) d{d} {kw}: out == c / 4")
-                else:
+    # (exact in bf16 and TF32) must give every output element its column's
+    # c / 4; V[t, c] = t mod 256 every output row the mean of its visible
+    # keys' indices, exactly in f32 (integer sums, one IEEE division) and to
+    # the bf16 rounding of the output (2^-8 relative) in bf16. A swizzle,
+    # descriptor, fragment, key-permutation or padding error moves a column
+    # or a row.
+    n_probes = dict(wgmma_bf16=0, tf32x3=0)
+    for dt, dims in ((bf16, (64, 128, 256)), (torch.float32, (16, 32, 64, 128, 256))):
+        for d in dims:
+            b, s, t, h, hkv = 1, 300, 300, 4, 2
+            q = torch.zeros(b, s, h, d, dtype=dt, device="cuda")
+            k = torch.zeros(b, t, hkv, d, dtype=dt, device="cuda")
+            cols = (torch.arange(d, device="cuda", dtype=torch.float32) / 4).expand(t, d)
+            index = (torch.arange(t, device="cuda", dtype=torch.float32) % 256)[:, None].expand(t, d)
+            for probe, vals in (("column", cols), ("row", index)):
+                v = vals[None, :, None, :].expand(b, t, hkv, d).to(dt).contiguous()
+                for kw in ({}, dict(window=40), dict(causal=False)):
+                    out = flash_attention(q, k, v, **kw).float()
+                    n_probes[kernel_instance(dt, d)] += 1
+                    what = f"flash layout probe ({probe}) {str(dt)[6:]} d{d} {kw}"
+                    if probe == "column":
+                        require(torch.equal(out, cols[:1].expand(b, s, h, d)),
+                                f"{what}: out == c / 4")
+                        continue
                     vis, _ = visible_keys(torch, s, t, **kw)
                     mean = (vis.double() * index[None, :, 0].double()).sum(1) / vis.sum(1)
                     want = mean[None, :, None, None].expand(b, s, h, d).float()
-                    require(torch.allclose(out, want, rtol=2 ** -8, atol=0),
-                            f"flash layout probe (row) d{d} {kw}: out == mean visible "
-                            f"index, max |err| {(out - want).abs().max().item():.3e}")
+                    err = (out - want).abs().max().item()
+                    if dt == bf16:
+                        require(torch.allclose(out, want, rtol=2 ** -8, atol=0),
+                                f"{what}: out == mean visible index, max |err| {err:.3e}")
+                    else:
+                        require(torch.equal(out, want),
+                                f"{what}: out == mean visible index exactly, max |err| {err:.3e}")
     q, k, v = cases[0][1:4]
     a = flash_attention(q, k, v, block_q=128, block_k=128)
     bq = flash_attention(q, k, v, block_q=256, block_k=512)
     require(torch.equal(a, bq), "flash result independent of block_q/block_k")
-    n_calls = len(cases) + len(masked) + n_probes + 2
+    n_calls = len(cases) + len(masked) + sum(n_probes.values()) + 2
     require(flash_attention.launches - launches0 == n_calls,
             "flash launch counter rose once per call")
 
     # gemma2-2b widths, the A/B path's longest case
     b, s, h, hkv, d = 1, 4096, 8, 4, 256
     rows = {}
-    for dt, peak in ((torch.float32, FP32_FLOPS), (torch.bfloat16, BF16_FLOPS)):
+    # f32 in 3xTF32: three TF32 operations for each f32 one
+    for dt, peak in ((torch.float32, TF32_FLOPS / 3), (torch.bfloat16, BF16_FLOPS)):
         q, k, v = rnd(b, s, h, d, dtype=dt), rnd(b, s, hkv, d, dtype=dt), rnd(b, s, hkv, d, dtype=dt)
         out = flash_attention(q, k, v)
         ref = flash_attention_ref(q, k, v)
@@ -690,30 +717,35 @@ def phase_flash(torch) -> tuple[dict, dict]:
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     f32, bf = rows[torch.float32], rows[torch.bfloat16]
-    print(f"# [7 flash] == plain on {len(cases) + len(masked)} cases ({n_wgmma} through "
-          f"wgmma_bf16, the rest through simt; f32 2e-5, soft-cap 3e-5, bf16 2e-2 and "
+    print(f"# [7 flash] == plain on {len(cases) + len(masked)} cases (through "
+          + ", ".join(f"{k} {n}" for k, n in by_instance.items())
+          + f"; f32 2e-5, soft-cap 3e-5, bf16 2e-2 and "
           f"RMS err <= 1e-2 RMS of the plain version in f32), max |err| f32 "
           f"{max_err:.3e}, bf16 {bf16_err:.3e}, bf16 RMS err / RMS {bf16_rms:.3e}; "
-          f"{n_masked_rows} fully masked rows exactly 0; {n_probes} wgmma_bf16 layout "
-          "probes exact; block_q/block_k invariant")
-    for name, r in (("f32 (simt)", f32), ("bf16 (wgmma_bf16)", bf)):
+          f"{n_masked_rows} fully masked rows exactly 0; layout probes exact "
+          f"({n_probes['tf32x3']} tf32x3, {n_probes['wgmma_bf16']} wgmma_bf16); "
+          "block_q/block_k invariant")
+    for name, r in (("f32 (tf32x3)", f32), ("bf16 (wgmma_bf16)", bf)):
         print(f"# [7 flash] gemma2-2b B=1 H=8/4 D=256 S=T=4096 causal {name}: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']} ({r['flops'] / 1e9:.2f} GFLOP, {r['moved'] / 1e6:.1f} MB); "
-              f"kernel {r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s; max |err| {r['err']:.3e}"
+              f"{r['bound_by']} ({r['flops'] / 1e9:.2f} GFLOP"
+              + (" x 3 TF32 at 495 TFLOP/s" if r is f32 else "")
+              + f", {r['moved'] / 1e6:.1f} MB); "
+              f"kernel {r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s, sdpa "
+              f"{r['flops'] / r['library_ms'] / 1e9:.2f} TFLOP/s; max |err| {r['err']:.3e}"
               + (f", RMS err / RMS {r['rms']:.3e}" if r["rms"] is not None else ""))
         print(f"# [7 trace] {name}: " + trace_line(*r["trace"]))
     common = dict(route="cuda", replaces="src/repro/kernels/flash_attention/kernel.py:113")
-    simt = dict(name="flash_attention", dtype="float32",
-                source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    tf32 = dict(name="flash_attention", dtype="float32",
+                source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_tf32.cu",
                 max_abs_err=max_err, **common,
                 **{k: f32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     wgmma = dict(name="flash_attention_bf16", dtype="bfloat16",
                  source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
                  max_abs_err=bf16_err, **common,
                  **{k: bf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    return simt, wgmma
+    return tf32, wgmma
 
 
 def ssd_flops_bytes(b, s, h, p, n, chunk, nbytes):
@@ -885,7 +917,8 @@ def phase_ab(torch, dtype="float32") -> dict:
         path = Path(tmp) / "ab.jsonl"
         torch.cuda.synchronize()
         flash_attention.launches = ssd_scan.launches = 0
-        flash_attention.launches_by_instance.update(wgmma_bf16=0, simt=0)
+        for name in flash_attention.launches_by_instance:
+            flash_attention.launches_by_instance[name] = 0
         for op, kernel, widths in runs:
             backend = TorchKernelBackend(batch=1, seed0=0, dtype=dtype, **widths)
             t = time.perf_counter()
@@ -907,7 +940,7 @@ def phase_ab(torch, dtype="float32") -> dict:
         snap = ResultStore(path).snapshot()
     for op in ("flash_attention", "ssd_scan"):
         require(launches[op] > 0, f"A/B {op}: the kernel launched on the #cuda side")
-    instance = "simt" if dtype == "float32" else "wgmma_bf16"
+    instance = "tf32x3" if dtype == "float32" else "wgmma_bf16"
     require(launches[instance] == launches["flash_attention"],
             f"A/B flash_attention {dtype}: every launch through the {instance} instance")
     n_records = sum(len(r) for r in snap.records.values())
@@ -932,7 +965,8 @@ def phase_ab(torch, dtype="float32") -> dict:
               f"{walls[op] - build - timed['#cuda'] - timed['#ref']:.2f} s; "
               f"kernel launches {launches[op]}")
     print(f"# {tag} store reloaded with {n_records} records; flash launches by "
-          f"instance {launches['simt']} simt, {launches['wgmma_bf16']} wgmma_bf16; "
+          f"instance {launches['tf32x3']} tf32x3, {launches['wgmma_bf16']} wgmma_bf16, "
+          f"{launches['simt']} simt; "
           "verdicts: " + ", ".join(
         f"{v.guideline.name}@{v.msize} {v.verdict} ratio {v.ratio:.3f}"
         for r in reports.values() for v in r.verdicts))
@@ -956,11 +990,11 @@ def main() -> int:
     kernel["launches"] = phase_main_path(torch)
     flash, flash_bf16 = phase_flash(torch)
     ssd, ssd_bf16 = phase_ssd(torch)
-    # the A/B path in the reference's f32 (the CUDA-core flash instance),
-    # then in bf16 (the tensor-core one); counts are reset before each
+    # the A/B path in the reference's f32 (the 3xTF32 flash instance), then
+    # in bf16 (the bf16 tensor-core one); counts are reset before each
     ab32 = phase_ab(torch, "float32")
     ab16 = phase_ab(torch, "bfloat16")
-    flash["launches"], flash_bf16["launches"] = ab32["simt"], ab16["wgmma_bf16"]
+    flash["launches"], flash_bf16["launches"] = ab32["tf32x3"], ab16["wgmma_bf16"]
     ssd["launches"], ssd_bf16["launches"] = ab32["ssd_scan"], ab16["ssd_scan"]
     print(json.dumps({"kernels": [kernel, flash, flash_bf16, ssd, ssd_bf16]}))
     print(f"# total {time.perf_counter() - t0:.1f} s")

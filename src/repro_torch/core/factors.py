@@ -58,8 +58,9 @@ class FactorSet:
         return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
 
-def capture_torch_factors(device="cpu", **overrides) -> FactorSet:
-    """A :class:`FactorSet` for work run by PyTorch on ``device``.
+def capture_torch_factors(device="cuda", **overrides) -> FactorSet:
+    """A :class:`FactorSet` for work run by PyTorch on ``device`` (the card
+    unless the caller passes ``"cpu"``, as every entry point of the port).
 
     Touches no JAX: ``jax_version`` and ``xla_flags`` are empty. ``extra``
     is ``overrides["extra"]`` followed by the torch version, the CUDA

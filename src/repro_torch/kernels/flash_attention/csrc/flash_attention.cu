@@ -1,19 +1,18 @@
-// Flash-attention forward for Hopper (sm_90a), called through a plain C
-// entry point (ctypes).
+// Flash-attention forward for Hopper (sm_90a) on the CUDA cores, bf16 at
+// head dims 16 and 32, called through a plain C entry point (ctypes).
 //
-// Replaces the JAX package's Pallas TPU kernel
+// Replaces, for bf16 inputs at head dims 16 and 32, the JAX package's
+// Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py::flash_attention_fwd (body
 // `_kernel`): grouped-query attention with an online softmax, optional
 // logit soft-cap, causal mask with a query offset, a sliding window given
 // as a runtime integer (one build serves local and global layers) and a
-// KV-length mask; running max, normaliser and accumulator in f32; inputs
-// f32 or bf16, output in the input's type.
+// KV-length mask; running max, normaliser and accumulator in f32, output
+// in bf16. f32 at every head dim runs flash_attention_tf32.cu, bf16 at
+// 64-256 flash_attention_sm90.cu, both on the tensor cores.
 //
-// What bounds it on the card: operations. At gemma2-2b widths (D = 256,
-// 8 query / 4 KV heads, S = T = 4096, causal) the two products are
-// 68.7 GFLOP against ~0.1 GB of inputs and output. This first version
-// runs them on the f32 CUDA cores (67 TFLOP/s), not on the tensor cores:
-// wgmma with TMA-fed tiles is the later step (ROADMAP Queue 2).
+// What bounds it on the card: operations, run here on the f32 CUDA cores
+// (67 TFLOP/s); at these head dims the products are small.
 //
 // Design, against what the TPU kernel did:
 //   * It reads model layout (B, S, H, D) through strides; the Pallas
@@ -25,18 +24,18 @@
 //   * KV tiles that the causal, window or kv_len mask covers entirely for
 //     the whole query tile are skipped; the rest are masked per element.
 //     Query tiles are handed out heaviest first under a causal mask.
-//   * Register pressure at D = 256: a warp owns RPW query rows, and the
-//     accumulator of each row is split across the 32 lanes (lane owns
-//     d = lane + 32 j), so a thread holds RPW * D / 32 floats, not a row.
+//   * A warp owns RPW query rows, and the accumulator of each row is
+//     split across the 32 lanes (lane owns d = lane + 32 j), so a thread
+//     holds RPW * max(D / 32, 1) floats, not a row.
 //     For the scores a lane owns keys (lane, lane + 32) instead and reads
 //     the query rows as shared-memory broadcasts; the probabilities pass
 //     between the two layouts through a per-warp shared buffer.
 //   * Shared memory: Q (BQ x D), K (BK x (D + 4), padded so the lanes'
 //     float4 reads of different keys hit different banks), V (BK x D) and
-//     the probabilities, all f32: 209 KiB at D = 256, above the 48 KiB
-//     default, so each instance raises its dynamic limit before launch.
+//     the probabilities, all f32; each instance raises its dynamic limit
+//     before launch.
 //   * Fully masked rows (no visible key) output 0, as the oracle does.
-//   * bf16: tiles are widened to f32 in shared memory; probabilities are
+//   * Tiles are widened to f32 in shared memory; probabilities are
 //     rounded to bf16 before the PV product, as the TPU kernel casts p to
 //     v's type; the normaliser sums the unrounded p, as it does there.
 
@@ -53,6 +52,8 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int BQ = FLASH_BLOCK_Q;   // query rows per CTA
 constexpr int BK = FLASH_BLOCK_K;   // keys per KV tile: two per lane
 constexpr int NWARPS = 8;
@@ -61,27 +62,15 @@ constexpr int RPW = BQ / NWARPS;    // query rows per warp
 static_assert(BK == 64, "a lane owns keys lane and lane + 32");
 static_assert(BQ % NWARPS == 0, "whole rows per warp");
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+__device__ __forceinline__ float4 load4(const bf16* p) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-template <typename T> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+__device__ __forceinline__ float round_to_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-template <typename T> __device__ __forceinline__ T store_as(float x);
-template <> __device__ __forceinline__ float store_as<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -98,10 +87,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // rows [row0, row0 + nrows) of a (., D) slab with row stride `rs` into
 // shared memory with row stride `ds`, widened to f32; rows >= `limit` are 0.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ds, const T* src,
-                                          long long rs, int row0, int limit,
-                                          int nrows) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int ds, const bf16* src,
+                                          long long rs, int row0, int limit, int nrows) {
   constexpr int G = D / 4;
   for (int i = threadIdx.x; i < nrows * G; i += THREADS) {
     const int r = i / G, c = (i % G) * 4;
@@ -117,10 +105,10 @@ constexpr size_t smem_bytes() {
                           + size_t(NWARPS) * RPW * BK);
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o,
+flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
+          const bf16* __restrict__ v, bf16* __restrict__ o,
           int S, int Tn, int group,
           long long qsb, long long qss, long long qsh,
           long long ksb, long long kss, long long ksh,
@@ -145,9 +133,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   float* Pw = Ps + warp * RPW * BK;
   const bool lane_has_d = D >= 32 || lane < D;
 
-  load_tile<D, T>(Qs, D, q + b * qsb + h * qsh, qss, q0, S, BQ);
-  const T* kb = k + b * ksb + hk * ksh;
-  const T* vb = v + b * vsb + hk * vsh;
+  load_tile<D>(Qs, D, q + b * qsb + h * qsh, qss, q0, S, BQ);
+  const bf16* kb = k + b * ksb + hk * ksh;
+  const bf16* vb = v + b * vsb + hk * vsh;
 
   // keys any row of this tile can see: [kbeg, kend)
   long long kend = Tn < kv_len ? Tn : kv_len;
@@ -171,8 +159,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = tbeg; kt < tend; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();    // Q is loaded / the previous tile is consumed
-    load_tile<D, T>(Ks, KS, kb, kss, k0, Tn, BK);
-    load_tile<D, T>(Vs, D, vb, vss, k0, Tn, BK);
+    load_tile<D>(Ks, KS, kb, kss, k0, Tn, BK);
+    load_tile<D>(Vs, D, vb, vss, k0, Tn, BK);
     __syncthreads();
 
     // scores: lane owns keys k0 + lane and k0 + lane + 32
@@ -216,8 +204,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       m[r] = m_new;
 #pragma unroll
       for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-      Pw[r * BK + lane] = round_to<T>(p0);
-      Pw[r * BK + lane + 32] = round_to<T>(p1);
+      Pw[r * BK + lane] = round_to_bf16(p0);
+      Pw[r * BK + lane + 32] = round_to_bf16(p1);
     }
     __syncwarp();
 
@@ -246,62 +234,45 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + r0 + r;
     if (qi >= S || !lane_has_d) continue;
     const float den = l[r] == 0.f ? 1.f : l[r];   // fully masked rows -> 0
-    T* orow = o + b * osb + (long long)qi * oss + h * osh;
+    bf16* orow = o + b * osb + (long long)qi * oss + h * osh;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = store_as<T>(acc[r][i] / den);
+    for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = __float2bfloat16(acc[r][i] / den);
   }
 }
 
-template <int D, typename T>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int Tn, int H, int Hkv, const long long* st, float scale,
            float cap, int causal, long long q_offset, long long window,
            long long kv_len, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd<D, T><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tn, H / Hkv,
+  flash_fwd<D><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, Tn, H / Hkv,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11], scale, cap, causal, q_offset, window, kv_len);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int S, int Tn, int H, int Hkv, const long long* st,
-             float scale, float cap, int causal, long long q_offset,
-             long long window, long long kv_len, cudaStream_t stream) {
-  switch (D) {
-    case 16:  return launch<16, T>(q, k, v, o, B, S, Tn, H, Hkv, st, scale, cap, causal, q_offset, window, kv_len, stream);
-    case 32:  return launch<32, T>(q, k, v, o, B, S, Tn, H, Hkv, st, scale, cap, causal, q_offset, window, kv_len, stream);
-    case 64:  return launch<64, T>(q, k, v, o, B, S, Tn, H, Hkv, st, scale, cap, causal, q_offset, window, kv_len, stream);
-    case 128: return launch<128, T>(q, k, v, o, B, S, Tn, H, Hkv, st, scale, cap, causal, q_offset, window, kv_len, stream);
-    case 256: return launch<256, T>(q, k, v, o, B, S, Tn, H, Hkv, st, scale, cap, causal, q_offset, window, kv_len, stream);
-    default:  return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. strides: q (batch, seq, head), then k, v,
-// o likewise, in elements; the head_dim stride is 1. window and kv_len are
-// "no limit" when at least T. Returns the CUDA error code (0 = launched).
+// bf16 q (B, S, H, D), k/v (B, T, Hkv, D), o (B, S, H, D), D 16 or 32.
+// strides: q (batch, seq, head), then k, v, o likewise, in elements; the
+// head_dim stride is 1. window and kv_len are "no limit" when at least T.
+// Returns the CUDA error code (0 = launched).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int S, int Tn, int H, int Hkv, int D, const long long* strides,
-    float scale, float cap, int causal, long long q_offset, long long window,
+    const void* q, const void* k, const void* v, void* o, int B, int S,
+    int Tn, int H, int Hkv, int D, const long long* strides, float scale,
+    float cap, int causal, long long q_offset, long long window,
     long long kv_len, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(D, q, k, v, o, B, S, Tn, H, Hkv, strides, scale,
-                           cap, causal, q_offset, window, kv_len, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, o, B, S, Tn, H, Hkv, strides,
-                                   scale, cap, causal, q_offset, window,
-                                   kv_len, s);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return launch<16>(q, k, v, o, B, S, Tn, H, Hkv, strides, scale, cap, causal, q_offset, window, kv_len, s);
+    case 32: return launch<32>(q, k, v, o, B, S, Tn, H, Hkv, strides, scale, cap, causal, q_offset, window, kv_len, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -5,11 +5,13 @@ archived reference audit campaign re-run through ``TorchSimBackend`` and
 certified by the reference's own TOST audit engine.
 """
 
+import inspect
 import json
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro.campaign import ResultStore as RefStore
 from repro.campaign import SimBackend
@@ -19,8 +21,8 @@ from repro.core import make_sync as ref_make_sync
 from repro.history import audit_tables
 from repro_torch.campaign import (Campaign, CampaignSpec, ResultStore,
                                   TorchSimBackend)
-from repro_torch.core import (ExperimentDesign, SimNet, TestCase, make_op,
-                              make_sync)
+from repro_torch.core import (ExperimentDesign, SimNet, TestCase,
+                              capture_torch_factors, make_op, make_sync)
 
 ARCHIVE = Path(__file__).resolve().parents[1] / "benchmarks" \
     / "reference_archive" / "run-000.jsonl"
@@ -89,6 +91,15 @@ def test_factors_match_reference_sim_backend():
     assert set(extra) - set(ref_extra) \
         == {"torch", "cuda", "capability", "device_name"}
     assert extra["device_name"] == "cpu"
+
+
+def test_capture_torch_factors_defaults_to_the_card_and_records_cpu():
+    """The capture runs on the card unless asked for the CPU, like every
+    entry point of the port; asked for the CPU it records the CPU."""
+    assert inspect.signature(capture_torch_factors).parameters["device"].default == "cuda"
+    extra = dict(capture_torch_factors(device="cpu", dtype="float32").extra)
+    assert extra["device_name"] == "cpu" and extra["capability"] == ""
+    assert extra["torch"] == torch.__version__
 
 
 def test_store_loads_in_reference_and_resumes_byte_identically(tmp_path):

@@ -86,12 +86,12 @@ def test_ssd_scan_kernel_matches_plain_version(dtype):
         assert err < bound, (b, s, h, p, n, chunk, err)
 
 
-# ---- the tensor-core (wgmma_bf16) instance of flash_attention -------------
+# ---- the tensor-core instances of flash_attention (wgmma_bf16, tf32x3) ----
 
-def _bf16_cases(d):
+def _instance_cases(d):
     """(label, (b, s, t, h, hkv), kwargs): ragged S and T (not multiples of
     128 or 64), GQA groups 1, 2 and 8, a window under one tile, decode,
-    soft-cap and fully masked rows."""
+    prefill at an offset, soft-cap and fully masked rows."""
     return [("causal ragged S=T=200, group 2", (2, 200, 200, 4, 2), {}),
             ("non-causal S=100 T=77, group 8", (1, 100, 77, 8, 1), dict(causal=False)),
             ("causal S=T=384, group 1", (1, 384, 384, 4, 4), {}),
@@ -128,7 +128,7 @@ def test_flash_attention_wgmma_bf16_matches_plain_version(d):
     before the cap, the kernels keep them in f32); fully masked rows
     exactly 0; every call through the tensor-core instance."""
     _need_gpu("flash_attention")
-    for label, (b, s, t, h, hkv), kw in _bf16_cases(d):
+    for label, (b, s, t, h, hkv), kw in _instance_cases(d):
         scale = 3.0 if "logit_cap" in kw else 1.0
         q, k, v = (x.to(torch.bfloat16).cuda() for x in
                    _draw(s + t + d, (b, s, h, d), (b, t, hkv, d), (b, t, hkv, d)))
@@ -185,10 +185,68 @@ def test_flash_attention_wgmma_bf16_layout_probes(d, probe):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_flash_attention_tf32x3_matches_plain_version(d):
+    """f32 through the 3xTF32 tensor-core instance at the reference's
+    bounds (2e-5, 3e-5 with soft-cap) on the bf16 instance's grid; fully
+    masked rows exactly 0; every call counted once, by that instance."""
+    _need_gpu("flash_attention")
+    for label, (b, s, t, h, hkv), kw in _instance_cases(d):
+        scale = 3.0 if "logit_cap" in kw else 1.0
+        tol = 3e-5 if "logit_cap" in kw else 2e-5
+        q, k, v = (x.cuda() for x in
+                   _draw(s + t + d, (b, s, h, d), (b, t, hkv, d), (b, t, hkv, d)))
+        q, k = q * scale, k * scale
+        before = dict(flash_attention.launches_by_instance)
+        launches = flash_attention.launches
+        out = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == launches + 1
+        assert flash_attention.launches_by_instance == {
+            **before, "tf32x3": before["tf32x3"] + 1}, (label, d)
+        assert out.dtype == torch.float32 and out.shape == q.shape
+        ref = flash_attention_ref(q, k, v, **kw)
+        torch.testing.assert_close(out, ref, rtol=tol, atol=tol, msg=f"{label} d={d}")
+        _, dead = _dead_rows(s, t, **kw)
+        assert (out[:, dead.cuda()] == 0).all(), (label, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("probe", ["column", "row"])
+def test_flash_attention_tf32x3_layout_probes(d, probe):
+    """q = k = 0, so every visible key has weight exactly 1. V[t, c] = c / 4
+    must give every output element its column's c / 4, and V[t, c] =
+    t mod 256 every output row the mean of its visible keys' indices, both
+    exactly: the values are exact in TF32, their sums in f32, and the
+    kernel divides by the normaliser. A fragment, key-permutation or
+    padding error moves a column or a row."""
+    _need_gpu("flash_attention")
+    b, s, t, h, hkv = 1, 300, 300, 4, 2
+    q = torch.zeros(b, s, h, d, device="cuda")
+    k = torch.zeros(b, t, hkv, d, device="cuda")
+    if probe == "column":
+        vals = (torch.arange(d, dtype=torch.float32) / 4).expand(t, d)
+    else:
+        vals = (torch.arange(t, dtype=torch.float32) % 256)[:, None].expand(t, d)
+    v = vals[None, :, None, :].expand(b, t, hkv, d).cuda().contiguous()
+    for kw in ({}, dict(window=40), dict(causal=False)):
+        out = flash_attention(q, k, v, **kw).cpu()
+        vis, _ = _dead_rows(s, t, **kw)
+        if probe == "column":
+            want = (torch.arange(d, dtype=torch.float32) / 4).expand(b, s, h, d)
+        else:
+            idx = (torch.arange(t, dtype=torch.float64) % 256)
+            mean = (vis.double() * idx).sum(1) / vis.double().sum(1)        # (s,)
+            want = mean[None, :, None, None].expand(b, s, h, d).float()
+        assert torch.equal(out, want), (d, kw, (out - want).abs().max().item())
+
+
+@pytest.mark.cuda
 def test_flash_attention_dispatch_by_dtype_and_head_dim():
-    """f32 at every head dim and bf16 at 16 and 32 stay on the CUDA-core
-    instance; bf16 at 64-256 goes to the tensor cores; a bf16 layout TMA
-    cannot read raises."""
+    """f32 at every head dim goes to the 3xTF32 tensor-core instance, bf16
+    at 64-256 to the bf16 one, bf16 at 16 and 32 stays on the CUDA-core
+    instance; a bf16 layout TMA cannot read raises."""
     _need_gpu("flash_attention")
     for dtype in (torch.float32, torch.bfloat16):
         for d in (16, 32, 64, 128, 256):
@@ -197,7 +255,10 @@ def test_flash_attention_dispatch_by_dtype_and_head_dim():
             before = dict(flash_attention.launches_by_instance)
             flash_attention(q, k, v)
             torch.cuda.synchronize()
-            want = "wgmma_bf16" if dtype == torch.bfloat16 and d >= 64 else "simt"
+            if dtype == torch.float32:
+                want = "tf32x3"
+            else:
+                want = "wgmma_bf16" if d >= 64 else "simt"
             assert flash_attention.launches_by_instance[want] == before[want] + 1
     q = torch.zeros(1, 64, 2, 68, dtype=torch.bfloat16, device="cuda")[..., :64]
     with pytest.raises(ValueError, match="multiple of 8"):

@@ -13,6 +13,8 @@ oracle; it is compared with the Pallas kernel on the rows that have a
 visible key, and the discrepancy on the others is asserted as a finding.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,6 +129,85 @@ def test_plain_matches_pallas_kernel_on_visible_rows(kw):
         np.testing.assert_allclose(pallas[:, ~live],
                                    np.broadcast_to(v_mean[:, None], pallas[:, ~live].shape),
                                    rtol=1e-5, atol=1e-5)
+
+
+def _tf32(x):
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does (to nearest, ties
+    away from zero): add half a TF32 ulp to the bit pattern and clear the
+    13 mantissa bits TF32 drops."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """The TF32 bits of float32 ``x``: the 13 mantissa bits TF32 drops
+    cleared."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, products):
+    """``a @ b`` from TF32 operands, summed in f32: one product, or the
+    tf32x3 kernel's three (hi = x rounded to TF32, lo = x - hi of which the
+    tensor cores read the TF32 bits; lo.hi, hi.lo, hi.hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if products == 1:
+        return ah @ bh
+    al, bl = _tf32_truncated(a - ah), _tf32_truncated(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32_attention(q, k, v, products, causal=True, window=None):
+    """The f32 kernel's arithmetic on the CPU: both products from TF32
+    operands, the unnormalised probabilities split like any operand, the
+    normaliser summed from them unsplit."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, hkv, h // hkv, d).permute(0, 2, 3, 1, 4)     # b k g s d
+    logits = _tf32_matmul(qg, k.permute(0, 2, 3, 1)[:, :, None], products) / math.sqrt(d)
+    qpos, kpos = torch.arange(s)[:, None], torch.arange(t)[None, :]
+    vis = torch.ones(s, t, dtype=torch.bool)
+    if causal:
+        vis &= kpos <= qpos
+    if window is not None:
+        vis &= (qpos - kpos) < window
+    logits = torch.where(vis, logits, -torch.inf)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m))
+    l = p.sum(-1, keepdim=True)
+    out = _tf32_matmul(p, v.permute(0, 2, 1, 3)[:, :, None], products)
+    out = out / torch.where(l == 0, 1.0, l)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """The f32 kernel's split, hi = (bits + 0x1000) & ~0x1fff, is x rounded
+    to the nearest TF32 value (11 significant bits), ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds; lo = x - hi is exact in f32."""
+    rng = np.random.default_rng(15)
+    x = (rng.standard_normal(4096) * 10.0 ** rng.integers(-30, 30, 4096)).astype(np.float32)
+    ties = (x.view(np.int32) & -0x2000) | 0x1000        # exactly half a TF32 ulp
+    x = np.concatenate([x, ties.view(np.float32), np.float32([0.0, -0.0, 1.0])])
+    mant, exp = np.frexp(x.astype(np.float64))          # |mant| in [0.5, 1)
+    want = np.ldexp(np.sign(mant) * np.floor(np.abs(mant) * 2.0 ** 11 + 0.5), exp - 11)
+    hi = _tf32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(hi.astype(np.float64), want)
+    np.testing.assert_array_equal((x - hi).astype(np.float64),
+                                  x.astype(np.float64) - hi.astype(np.float64))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(window=32)])
+def test_tf32x3_arithmetic_holds_the_f32_bound(kw):
+    """Why the f32 kernel issues three TF32 products per f32 product: at
+    gemma2-2b's head dim 256 (S = T = 256, causal), the 3xTF32 arithmetic
+    stays within the reference's 2e-5 of the JAX oracle, while a single
+    TF32 product misses it by more than 10x."""
+    arrays = _draw(256, (1, 256, 2, 256), (1, 256, 1, 256), (1, 256, 1, 256))
+    jx, tx = _both(arrays, jnp.float32)
+    ref = np.asarray(jax_ref(*jx, **kw))
+    three = _tf32_attention(*tx, products=3, **kw).numpy()
+    np.testing.assert_allclose(three, ref, rtol=2e-5, atol=2e-5)
+    one = _tf32_attention(*tx, products=1, **kw).numpy()
+    assert np.abs(one - ref).max() > 10 * 2e-5
 
 
 def test_wrapper_runs_plain_version_on_cpu():

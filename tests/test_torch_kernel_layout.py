@@ -1,7 +1,8 @@
 """The kernel wrappers' dispatch and layout checks, called directly on CPU
 tensors: which flash-attention instance a CUDA call would launch, which
 layouts the kernels refuse (they copy 16-byte pieces: TMA for the bf16
-attention kernel, ``cp.async`` for the SSD kernels), and how the SSD
+attention kernel, ``cp.async`` for the f32 attention kernel and the SSD
+kernels), and how the SSD
 chunk walk's p-tiles cover the head dim. No kernel runs here; the
 kernels themselves are held against their plain versions on the card
 (``test_torch_cuda_kernels.py``, ``chip_smoke.py``).
@@ -28,7 +29,10 @@ def _qkv(dtype, d, pad=0, b=1, s=64, h=4, hkv=2):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_dispatch_table(dtype, d):
-    want = "wgmma_bf16" if dtype == torch.bfloat16 and d in (64, 128, 256) else "simt"
+    if dtype == torch.float32:
+        want = "tf32x3"
+    else:
+        want = "wgmma_bf16" if d in (64, 128, 256) else "simt"
     assert kernel_instance(dtype, d) == want
     assert check_kernel_layout(*_qkv(dtype, d)) == want
 
@@ -46,9 +50,10 @@ def test_flash_bf16_strides_multiple_of_8_pass(pad):
 
 
 def test_flash_f32_keeps_the_cuda_core_rule():
-    """The CUDA-core instance loads four elements at a time: a stride of
-    68 floats passes, 66 does not."""
-    assert check_kernel_layout(*_qkv(torch.float32, 64, pad=4)) == "simt"
+    """The f32 instance keeps the CUDA-core kernel's rule (it copies
+    16-byte pieces with cp.async): a stride of 68 floats passes, 66 does
+    not."""
+    assert check_kernel_layout(*_qkv(torch.float32, 64, pad=4)) == "tf32x3"
     with pytest.raises(ValueError, match="multiple of 4"):
         check_kernel_layout(*_qkv(torch.float32, 64, pad=2))
 
@@ -58,6 +63,14 @@ def test_flash_unaligned_start_raises():
     q = base[..., 4:68]                      # starts 8 bytes in
     k = v = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="aligned"):
+        check_kernel_layout(q, k, v)
+
+
+def test_flash_f32_unaligned_start_raises():
+    base = torch.zeros(1, 64, 4, 64 + 4, dtype=torch.float32)
+    q = base[..., 2:66]                      # starts 8 bytes in
+    k = v = torch.zeros(1, 64, 2, 64, dtype=torch.float32)
+    with pytest.raises(ValueError, match="cp.async"):
         check_kernel_layout(q, k, v)
 
 
