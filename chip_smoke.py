@@ -17,8 +17,10 @@ Phases, each of which raises (exit code 1) on failure:
      one ``nvcc`` each, all started together; each build's time and its
      ptxas lines (registers, spills, shared memory, performance warnings);
   3. ``sim_scan`` against its plain version on the card over a grid of
-     AR(1) coefficients and shapes, then its time at the main path's shape
-     beside its memory bound;
+     AR(1) coefficients and shapes (R in {1, 30, 200}, lengths around one
+     tile and 1e5), each case launched twice and held bit-identical, then
+     its times at the main path's two shapes (the fused R = 30 call and an
+     R = 1 top-up, n = 1e5) beside its memory bound;
   4. both engines on the card against the port on the CPU, noise-free
      from the same state (a device-only fault shows here);
   5. the archived reference audit campaign
@@ -26,8 +28,9 @@ Phases, each of which raises (exit code 1) on failure:
      cell's median of per-epoch medians within ±10% of the archive's;
   6. the main path at a size users run: p = 512 ranks, 30 launch epochs,
      nrep = 100 000, hca sync, allreduce/bcast/alltoall at 4096 B, fused,
-     with its time split into host sync, sampling and window; one epoch of
-     the same shape through the CPU path for scale and as a cross-check;
+     with its time split into host sync, sampling and window, and the
+     shapes ``sim_scan`` was launched at; one epoch of the same shape
+     through the CPU path for scale and as a cross-check;
   7. ``flash_attention`` against its plain version on the card over the
      reference's shape grid (GQA, MQA, MHA, head dims 16-256), f32 and
      bf16, sliding window, soft-cap, decode, ragged and fully masked rows
@@ -54,6 +57,10 @@ Phases, each of which raises (exit code 1) on failure:
  10. a ``kernels`` JSON line for every kernel of both paths, flash and
      SSD once per type.
 
+Every timed kernel in phases 3, 7 and 8 has ``nvidia-smi``'s SM clock
+(now and max), power draw and temperature, sampled right before and after
+it, printed beside its time.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit. Without a GPU, or outside the
 repository, it exits non-zero and prints no result.
@@ -61,6 +68,7 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import copy
 import json
 import re
@@ -97,11 +105,35 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, after a warm-up."""
+def clocks() -> str:
+    """The card's SM clock (now, max), power draw and temperature."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def clocked(timer) -> tuple[float, str]:
+    """``timer()`` (a time in ms) with ``nvidia-smi`` sampled right before
+    and after it: ``(ms, "[before -> after]")``."""
+    before = clocks()
+    ms = timer()
+    return ms, f"[sm clock, max, power, temp: {before} -> {clocks()}]"
+
+
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls, after a warm-up.
+
+    ``queued``: the stream is held by a spin kernel (~100 us per call)
+    while the host queues the calls, so the events time the device's work
+    back to back, not the host's enqueue rate, for calls shorter than
+    their host overhead."""
     import torch
 
     fn()
+    if queued:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2e5 * reps))
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
@@ -238,47 +270,67 @@ def scan_call(fn, x, coeff):
 
 def phase_kernel(torch) -> dict:
     from repro_torch.kernels.sim_scan import sim_durations_ref, sim_durations_scan
+    from repro_torch.kernels.sim_scan.ref import ITEMS, THREADS
 
+    chunk = THREADS * ITEMS          # one tile of the kernel
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2015)
     launches0 = sim_durations_scan.launches
-    n_calls, max_err = 0, 0.0
+    n_cases, max_err, max_s_err = 0, 0.0, 0.0
     for coeff in (0.35, 0.0, -0.5, 0.9, 0.004, -0.999):
-        for n in (32, 1000, 100_000):
-            for R in (1, 30):
+        for n in (32, 1000, chunk - 1, chunk, chunk + 1, 100_000):
+            for R in (1, 30, 200):    # 200: more rows than the card has SMs
                 x = scan_inputs(torch, R, n, gen)
                 t, s = scan_call(sim_durations_scan, x, coeff)
+                t2, s2 = scan_call(sim_durations_scan, x, coeff)
                 torch.cuda.synchronize()
+                what = f"coeff={coeff} R={R} n={n}"
+                require(torch.equal(t, t2) and torch.equal(s, s2),
+                        f"sim_scan {what}: two launches bit-identical")
                 tr, sr = scan_call(sim_durations_ref, x, coeff)
-                n_calls += 1
+                n_cases += 1
                 require(torch.allclose(t, tr, rtol=1e-12, atol=1e-18),
-                        f"sim_scan t vs plain, coeff={coeff} R={R} n={n}: "
+                        f"sim_scan t vs plain, {what}: "
                         f"max |err| {(t - tr).abs().max().item():.3e}")
                 require(torch.allclose(s, sr, rtol=1e-12, atol=1e-14),
-                        f"sim_scan s vs plain, coeff={coeff} R={R} n={n}: "
+                        f"sim_scan s vs plain, {what}: "
                         f"max |err| {(s - sr).abs().max().item():.3e}")
-                max_err = max(max_err, (t - tr).abs().max().item(),
-                              (s - sr).abs().max().item())
-    require(sim_durations_scan.launches - launches0 == n_calls,
+                s_err = (s - sr).abs().max().item()
+                max_s_err = max(max_s_err, s_err)
+                max_err = max(max_err, (t - tr).abs().max().item(), s_err)
+                del x, t, s, t2, s2, tr, sr
+    require(sim_durations_scan.launches - launches0 == 2 * n_cases,
             "sim_scan launch counter rose once per call")
+    torch.cuda.empty_cache()
+    print(f"# [3 kernel] sim_scan == plain on {n_cases} cases (R 1/30/200, n 32 to "
+          f"1e5 around the {chunk}-element tile; rtol 1e-12; atol 1e-18 t, 1e-14 s), "
+          f"max |err| {max_err:.3e}, s max |err| {max_s_err:.3e}; every case "
+          "launched twice, bit-identical")
 
-    R, n = 30, 100_000        # the main path's shape: 30 epochs x nrep 1e5
-    x = scan_inputs(torch, R, n, gen)
-    ms = cuda_ms(lambda: scan_call(sim_durations_scan, x, 0.35), 50)
-    plain_ms = cuda_ms(lambda: scan_call(sim_durations_ref, x, 0.35), 5)
-    nbytes = R * n * 6 * 8 + 2 * R * 8        # 4 inputs + 2 outputs, f64
-    nops = R * n * 12                         # scan 2, exp 1, mixture 9
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / FP64_FLOPS) * 1e3
-    print(f"# [3 kernel] sim_scan == plain on {n_calls} cases (rtol 1e-12; "
-          f"atol 1e-18 t, 1e-14 s), max |err| {max_err:.3e}; at R={R} "
-          f"n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
-          f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    rows = {}
+    for R, n in ((30, 100_000), (1, 100_000)):   # the fused call; a top-up
+        x = scan_inputs(torch, R, n, gen)
+        kernel = lambda: scan_call(sim_durations_scan, x, 0.35)  # noqa: E731
+        ms, clk = clocked(lambda: cuda_ms(kernel, 100, queued=True))
+        loop_ms = cuda_ms(kernel, 100)
+        plain_ms = cuda_ms(lambda: scan_call(sim_durations_ref, x, 0.35), 5)
+        nbytes = R * n * 6 * 8 + 2 * R * 8        # 4 inputs + 2 outputs, f64
+        nops = R * n * 12                         # scan 2, exp 1, mixture 9
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / FP64_FLOPS) * 1e3
+        rows[R] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        print(f"# [3 kernel] sim_scan R={R} n={n}: kernel {ms:.4f} ms (calls queued "
+              f"ahead; {loop_ms:.4f} ms as a plain loop of calls) {clk}, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
+              f"3.35 TB/s), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
+              f"{bound_ms / ms:.3f} of the bound")
+        del x
+    r30, r1 = rows[30], rows[1]
     return dict(name="sim_scan", route="cuda",
                 source="src/repro_torch/kernels/sim_scan/csrc/sim_scan.cu",
                 replaces="src/repro/kernels/sim_scan/kernel.py:86",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+                max_abs_err=max_err, ms=r30["ms"], plain_ms=r30["plain_ms"],
+                bound_ms=r30["bound_ms"], bound_by="bytes", library_ms=None,
+                ms_r1=r1["ms"], plain_ms_r1=r1["plain_ms"], bound_ms_r1=r1["bound_ms"])
 
 
 def phase_engines(torch):
@@ -377,11 +429,24 @@ def phase_main_path(torch) -> int:
             return out
         return timed
 
+    # the kernel's launches by shape, and its device span by row count
+    shapes: collections.Counter = collections.Counter()
+    by_rows: dict = {}
+    kernel = simengine.sim_durations_scan
+
+    def kernel_by_shape(eps, *args, **kw):
+        R, n = eps.shape
+        if R and n:                 # an empty call launches nothing
+            shapes[R, n] += 1
+        if R not in by_rows:
+            by_rows[R] = spans.wrap(f"sim_scan R={R}", kernel)
+        return by_rows[R](eps, *args, **kw)
+
     # (module, attribute, wrapper): device spans inside the engine, host
     # time of each step the backend calls
     patches = [(simengine, name, spans.wrap(name, getattr(simengine, name)))
-               for name in ("_sample", "_window_fused", "_window",
-                            "sim_durations_scan")]
+               for name in ("_sample", "_window_fused", "_window")]
+    patches.append((simengine, "sim_durations_scan", kernel_by_shape))
     patches += [(backends, name, host_timed(name, getattr(backends, name)))
                 for name in ("run_windowed_epochs_torch", "run_windowed_torch")]
     patches.append((backends.TorchSimBackend, "make_epoch",
@@ -405,7 +470,8 @@ def phase_main_path(torch) -> int:
         for obj, name, fn in originals:
             setattr(obj, name, fn)
     sample_ms = spans.ms("_sample")
-    kernel_ms = spans.ms("sim_durations_scan")
+    rows_ms = {R: spans.ms(f"sim_scan R={R}") for R in sorted(by_rows)}
+    kernel_ms = sum(rows_ms.values())
     window_ms = spans.ms("_window_fused") + spans.ms("_window")
     sync_s = host.get("make_epoch", [])
     fused_s = host.get("run_windowed_epochs_torch", [])
@@ -437,6 +503,17 @@ def phase_main_path(torch) -> int:
           f"dispatches {res.meta['dispatch']}; valid share per record after "
           "top-ups (min/mean): " + ", ".join(
               f"{op} {min(v):.4f}/{sum(v) / len(v):.4f}" for op, v in kept.items()))
+
+    require(sum(shapes.values()) == launches, "every sim_scan launch seen by shape")
+    groups = []
+    for R, ms in rows_ms.items():
+        ns = sorted(n for (r, n), c in shapes.items() if r == R for _ in range(c))
+        groups.append(f"R={R}: {len(ns)} launches, n {ns[0]}/{ns[len(ns) // 2]}/"
+                      f"{ns[-1]} (min/median/max), device span {ms / 1e3:.4f} s "
+                      f"({ms / len(ns):.4f} ms per launch)")
+    print("# [6 sim_scan] launches by rows: " + "; ".join(groups)
+          + "; most launched shapes (R, n): " + ", ".join(
+              f"{k} x{c}" for k, c in shapes.most_common(5)))
 
     # one epoch of the same shape through the CPU path: epoch 0 has the same
     # host state and case order, so its medians must agree with the card's
@@ -705,14 +782,14 @@ def phase_flash(torch) -> tuple[dict, dict]:
             bf16_err, bf16_rms = max(bf16_err, err), max(bf16_rms, rms)
         del out
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        ms = cuda_ms(lambda: flash_attention(q, k, v), 20)
+        ms, clk = clocked(lambda: cuda_ms(lambda: flash_attention(q, k, v), 20))
         plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), 3)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), 20)
         bound_ms, bound_by, flops, moved = attn_bound_ms(b, s, s, h, hkv, d,
                                                          q.element_size(), peak)
         rows[dt] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, flops=flops, moved=moved, err=err, rms=rms,
+                        bound_by=bound_by, flops=flops, moved=moved, err=err, rms=rms, clk=clk,
                         trace=trace(torch, lambda: flash_attention(q, k, v)))
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
@@ -727,7 +804,7 @@ def phase_flash(torch) -> tuple[dict, dict]:
           "block_q/block_k invariant")
     for name, r in (("f32 (tf32x3)", f32), ("bf16 (wgmma_bf16)", bf)):
         print(f"# [7 flash] gemma2-2b B=1 H=8/4 D=256 S=T=4096 causal {name}: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+              f"{r['ms']:.4f} ms {r['clk']}, plain {r['plain_ms']:.4f} ms, sdpa "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']} ({r['flops'] / 1e9:.2f} GFLOP"
               + (" x 3 TF32 at 495 TFLOP/s" if r is f32 else "")
@@ -824,12 +901,13 @@ def phase_ssd(torch) -> tuple[dict, dict]:
     for s in AB_SEQS:
         for dt in (torch.float32, torch.bfloat16):
             x, dta, B, C = inputs(1, s, h, p, n, dt)
-            ms = cuda_ms(lambda: ssd_scan(x, dta, B, C, chunk=chunk, head_group=8), 20)
+            ms, clk = clocked(lambda: cuda_ms(
+                lambda: ssd_scan(x, dta, B, C, chunk=chunk, head_group=8), 20))
             plain_ms = cuda_ms(lambda: ssd_chunked(x, dta, B, C, chunk), 5)
             flops, moved = ssd_flops_bytes(1, s, h, p, n, chunk, x.element_size())
             peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
             bound_ms, bound_by = bound(flops, peak, moved)
-            rows[s, dt] = dict(ms=ms, plain_ms=plain_ms, flops=flops, moved=moved,
+            rows[s, dt] = dict(ms=ms, plain_ms=plain_ms, flops=flops, moved=moved, clk=clk,
                                bound_ms=bound_ms, bound_by=bound_by,
                                trace=trace(torch, lambda: ssd_scan(x, dta, B, C, chunk=chunk)))
     print(f"# [8 ssd] == plain on {n_calls - 3} cases (max err / max|y| f32 "
@@ -839,7 +917,7 @@ def phase_ssd(torch) -> tuple[dict, dict]:
           "head_group invariant")
     for (s, dt), r in rows.items():
         print(f"# [8 ssd] mamba2-1.3b b=1 s={s} h=64 p=64 n=128 chunk 64 "
-              f"{str(dt).replace('torch.', '')}: kernel {r['ms']:.4f} ms, plain "
+              f"{str(dt).replace('torch.', '')}: kernel {r['ms']:.4f} ms {r['clk']}, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
               f"({r['flops'] / 1e9:.2f} GFLOP, {r['moved'] / 1e6:.1f} MB); kernel "
               f"{r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s")

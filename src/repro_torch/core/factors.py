@@ -4,8 +4,9 @@
 ``repro.core.factors.FactorSet`` and the same fingerprint, so a store the
 port writes is keyed, loaded and compared like one the reference writes.
 :func:`capture_torch_factors` records the PyTorch environment: the JAX
-fields stay empty, and the torch version, CUDA version, compute capability
-and device name go in ``extra``.
+fields stay empty, ``matmul_precision`` is torch's float32 matmul
+precision, and the torch version, CUDA version, compute capability, device
+name and both TF32 switches go in ``extra``.
 """
 
 from __future__ import annotations
@@ -62,10 +63,14 @@ def capture_torch_factors(device="cuda", **overrides) -> FactorSet:
     """A :class:`FactorSet` for work run by PyTorch on ``device`` (the card
     unless the caller passes ``"cpu"``, as every entry point of the port).
 
-    Touches no JAX: ``jax_version`` and ``xla_flags`` are empty. ``extra``
-    is ``overrides["extra"]`` followed by the torch version, the CUDA
-    version torch was built with, and the device's compute capability and
-    name (empty capability and ``"cpu"`` for the CPU).
+    Touches no JAX: ``jax_version`` and ``xla_flags`` are empty.
+    ``matmul_precision`` is ``torch.get_float32_matmul_precision()``
+    unless the caller overrides it: under ``"high"`` or ``"medium"`` a
+    float32 product (the ``#ref`` side of an f32 kernel A/B) may run in
+    TF32, so the setting is a factor. ``extra`` is ``overrides["extra"]``
+    followed by the torch version, the CUDA version torch was built with,
+    the device's compute capability and name (empty capability and
+    ``"cpu"`` for the CPU), and the TF32 switches of cuBLAS and cuDNN.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -75,8 +80,11 @@ def capture_torch_factors(device="cuda", **overrides) -> FactorSet:
     else:
         capability, name = "", dev.type
     env = (("torch", torch.__version__), ("cuda", torch.version.cuda or ""),
-           ("capability", capability), ("device_name", name))
-    base = dict(jax_version="", xla_flags="")
+           ("capability", capability), ("device_name", name),
+           ("allow_tf32_matmul", torch.backends.cuda.matmul.allow_tf32),
+           ("allow_tf32_cudnn", torch.backends.cudnn.allow_tf32))
+    base = dict(jax_version="", xla_flags="",
+                matmul_precision=torch.get_float32_matmul_precision())
     base.update(overrides)
     base["extra"] = tuple(base.get("extra", ())) + env
     return FactorSet(**base)

@@ -5,6 +5,11 @@ it launches the kernel on the current stream, or raises; on CPU tensors it
 runs the plain version (:func:`.ref.sim_durations_ref`). There is no other
 path: a kernel that fails to build or launch raises, it is never replaced
 by the plain version.
+
+The kernel runs one block per tile of ``THREADS * ITEMS`` elements and
+carries the AR(1) state across tiles by a decoupled look-back. Each call
+gives it a zeroed scratch buffer of 32-byte records: a tile counter, then
+one status record per tile (``R * ceil(n / (THREADS * ITEMS))`` of them).
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ def load_kernel() -> tuple[ctypes.CDLL, str]:
                              flags=("--fmad=false",))
     fn = lib.sim_scan_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 9
                    + [ctypes.c_longlong] * 2
                    + [ctypes.c_double] * 5
                    + [ctypes.c_void_p])
@@ -87,13 +92,21 @@ def sim_durations_scan(eps, u_tail, u_mag, u_spike, *, coeff, state, t0,
     s = torch.empty_like(eps)
     if R == 0 or n == 0:
         return t, s
+    tiles = R * -(-n // (THREADS * ITEMS))
+    if tiles >= 2**31:
+        raise ValueError(f"sim_durations_scan: {tiles} tiles of "
+                         f"{THREADS * ITEMS} elements, at most 2**31 - 1")
     lib, _ = load_kernel()
     with torch.cuda.device(eps.device):
+        # the tile counter and one status record per tile, 32 bytes each
+        scratch = torch.zeros((tiles + 1, 4), dtype=torch.float64,
+                              device=eps.device)
         stream = torch.cuda.current_stream(eps.device).cuda_stream
         err = lib.sim_scan_launch(
             eps.data_ptr(), u_tail.data_ptr(), u_mag.data_ptr(),
             u_spike.data_ptr(), state.data_ptr(), t0.data_ptr(),
-            t.data_ptr(), s.data_ptr(), R, n, params["coeff"],
+            t.data_ptr(), s.data_ptr(), scratch.data_ptr(), R, n,
+            params["coeff"],
             params["tail_prob"], params["tail_shift"], params["spike_prob"],
             params["spike_scale"], stream)
     if err != 0:

@@ -8,21 +8,29 @@ AR(1) recurrence ``s_i = coeff * s_{i-1} + eps_i`` from a per-row
 by the lognormal / bimodal-tail / spike mixture.
 
 The composition is evaluated in the association order of the CUDA kernel
-(``csrc/sim_scan.cu``): rows are cut into chunks of ``THREADS * ITEMS``
-elements; inside a chunk each thread scans ``ITEMS`` neighbours serially,
+(``csrc/sim_scan.cu``): rows are cut into tiles of ``THREADS * ITEMS``
+elements; inside a tile each thread scans ``ITEMS`` neighbours serially,
 lanes combine by a Hillis-Steele scan over the 32 lanes of a warp, warps by
-the same scan over the warp totals, and the chunk's prefix maps are applied
-to the carry left by the previous chunk. Any order is exact to rounding,
-but rounding differences accumulate over ``1 / (1 - |coeff|)`` steps:
-at ``coeff = -0.999`` two orders drift ~1e-14 apart, the size of the
+the same scan over the warp totals (:func:`tile_maps`), and the tile's
+prefix maps are applied to the carry left by the previous tile
+(:func:`carry_chain`). Any order is exact to rounding, but rounding
+differences accumulate over ``1 / (1 - |coeff|)`` steps: at
+``coeff = -0.999`` two orders drift ~1e-14 apart, the size of the
 comparison bound. In one order the kernel and this function round alike.
+
+The kernel runs the tiles in parallel and finds each tile's carry by a
+look-back: from the nearest earlier tile whose end state ``S_k`` is known
+it applies the aggregates ``(A_m, B_m)`` (each tile's last map) of the
+tiles between, in forward order, ``c = A_m * c + B_m``. Those are the
+multiplications and additions of :func:`carry_chain`'s serial loop, so the
+carry is the same to the bit wherever the look-back stops.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["sim_durations_ref", "THREADS", "ITEMS"]
+__all__ = ["sim_durations_ref", "tile_maps", "carry_chain", "THREADS", "ITEMS"]
 
 #: Threads per block of the CUDA kernel and elements each thread scans
 #: serially; passed to ``nvcc`` as ``-D`` flags, so this is the one place
@@ -50,16 +58,11 @@ def _inclusive_scan(a: torch.Tensor, b: torch.Tensor, width: int):
     return a, b
 
 
-def sim_durations_ref(eps, u_tail, u_mag, u_spike, *, coeff, state, t0,
-                      tail_prob, tail_shift, spike_prob, spike_scale):
-    """Returns ``(durations, s)``, both ``(R, n)`` float64.
-
-    ``eps`` (the AR(1) innovations) and the uniforms ``u_tail``, ``u_mag``,
-    ``u_spike`` are ``(R, n)``; ``state`` (the AR(1) carry-in) and ``t0``
-    (the term's base time times its epoch bias) are ``(R,)``. A tail fires
-    where ``u_tail < tail_prob`` with magnitude ``1 + tail_shift * (0.7 +
-    0.6 * u_mag)``, a spike where ``u_spike < spike_prob``.
-    """
+def tile_maps(eps: torch.Tensor, coeff: float):
+    """``(Ea, Eb)``, each ``(R, tiles, THREADS * ITEMS)``: element ``i`` of
+    a tile maps the tile's carry-in ``c`` to ``s_i = Ea_i * c + Eb_i``.
+    ``eps`` is ``(R, n)``, zero-padded to whole tiles (the padding feeds
+    only positions past ``n``). The last column is the tile's aggregate."""
     R, n = eps.shape
     chunk = THREADS * ITEMS
     nch = max(1, -(-n // chunk))
@@ -75,7 +78,7 @@ def sim_durations_ref(eps, u_tail, u_mag, u_spike, *, coeff, state, t0,
         A[..., k] = A[..., k - 1] * coeff
         B[..., k] = B[..., k - 1] * coeff + e[..., k]
 
-    # lanes within a warp, then warps within the chunk (exclusive prefixes)
+    # lanes within a warp, then warps within the tile (exclusive prefixes)
     la, lb = _inclusive_scan(A[..., -1], B[..., -1], 32)
     wa, wb = _inclusive_scan(la[..., -1], lb[..., -1], _WARPS)
     la, lb = _shift(la, 1, 1.0), _shift(lb, 1, 0.0)
@@ -84,14 +87,36 @@ def sim_durations_ref(eps, u_tail, u_mag, u_spike, *, coeff, state, t0,
     pb = wb[..., None] * la + lb
     Ea = (pa[..., None] * A).reshape(R, nch, chunk)
     Eb = (pb[..., None] * A + B).reshape(R, nch, chunk)
+    return Ea, Eb
 
-    # carry across chunks
+
+def carry_chain(Ea: torch.Tensor, Eb: torch.Tensor,
+                state: torch.Tensor) -> torch.Tensor:
+    """The states ``s``, ``(R, tiles, chunk)``: tile ``c`` applied to the
+    carry its predecessor left (``state`` for tile 0), in tile order.
+    Tile ``c``'s end state ``s[:, c, -1]`` is ``Ea[:, c, -1] * carry +
+    Eb[:, c, -1]``, one multiplication and one addition per tile."""
     s = torch.empty_like(Ea)
     carry = state
-    for c in range(nch):
+    for c in range(Ea.shape[1]):
         s[:, c] = Ea[:, c] * carry[:, None] + Eb[:, c]
         carry = s[:, c, -1]
-    s = s.reshape(R, nch * chunk)[:, :n]
+    return s
+
+
+def sim_durations_ref(eps, u_tail, u_mag, u_spike, *, coeff, state, t0,
+                      tail_prob, tail_shift, spike_prob, spike_scale):
+    """Returns ``(durations, s)``, both ``(R, n)`` float64.
+
+    ``eps`` (the AR(1) innovations) and the uniforms ``u_tail``, ``u_mag``,
+    ``u_spike`` are ``(R, n)``; ``state`` (the AR(1) carry-in) and ``t0``
+    (the term's base time times its epoch bias) are ``(R,)``. A tail fires
+    where ``u_tail < tail_prob`` with magnitude ``1 + tail_shift * (0.7 +
+    0.6 * u_mag)``, a spike where ``u_spike < spike_prob``.
+    """
+    R, n = eps.shape
+    Ea, Eb = tile_maps(eps, coeff)
+    s = carry_chain(Ea, Eb, state).reshape(R, -1)[:, :n]
 
     t = t0[:, None] * torch.exp(s)
     mag = 1.0 + tail_shift * (0.7 + 0.6 * u_mag)

@@ -81,15 +81,17 @@ def test_factors_match_reference_sim_backend():
     a, b = ref.factors(design).to_dict(), ours.factors(design).to_dict()
     assert set(a) == set(b)
     for k in a:
-        if k not in ("jax_version", "xla_flags", "extra"):
+        if k not in ("jax_version", "xla_flags", "matmul_precision", "extra"):
             assert a[k] == b[k], k
     assert b["jax_version"] == "" and b["xla_flags"] == ""
+    assert b["matmul_precision"] == torch.get_float32_matmul_precision()
     ref_extra = dict(a["extra"])
     ref_extra["engine"] = "torch"
     extra = dict(b["extra"])
     assert {k: extra[k] for k in ref_extra} == ref_extra
     assert set(extra) - set(ref_extra) \
-        == {"torch", "cuda", "capability", "device_name"}
+        == {"torch", "cuda", "capability", "device_name", "allow_tf32_matmul",
+            "allow_tf32_cudnn"}
     assert extra["device_name"] == "cpu"
 
 
@@ -100,6 +102,37 @@ def test_capture_torch_factors_defaults_to_the_card_and_records_cpu():
     extra = dict(capture_torch_factors(device="cpu", dtype="float32").extra)
     assert extra["device_name"] == "cpu" and extra["capability"] == ""
     assert extra["torch"] == torch.__version__
+
+
+def test_capture_torch_factors_records_the_f32_matmul_precision():
+    """Torch's float32 matmul precision is a factor: under "high" the f32
+    ``#ref`` side of a kernel A/B may run in TF32, so the fingerprint must
+    change with it, and with either TF32 switch. A caller's override wins."""
+    before = (torch.get_float32_matmul_precision(),
+              torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        prints = {}
+        for precision in ("highest", "high"):
+            torch.set_float32_matmul_precision(precision)
+            f = capture_torch_factors(device="cpu", dtype="float32")
+            assert f.matmul_precision == precision == torch.get_float32_matmul_precision()
+            assert dict(f.extra)["allow_tf32_matmul"] == torch.backends.cuda.matmul.allow_tf32
+            prints[precision] = f.fingerprint()
+        assert prints["highest"] != prints["high"]
+        torch.set_float32_matmul_precision("highest")
+        assert capture_torch_factors(device="cpu").fingerprint() \
+            == capture_torch_factors(device="cpu").fingerprint()
+        base = capture_torch_factors(device="cpu").fingerprint()
+        torch.backends.cudnn.allow_tf32 = not before[2]
+        assert dict(capture_torch_factors(device="cpu").extra)["allow_tf32_cudnn"] \
+            is (not before[2])
+        assert capture_torch_factors(device="cpu").fingerprint() != base
+        assert capture_torch_factors(device="cpu", matmul_precision="medium") \
+            .matmul_precision == "medium"
+    finally:
+        torch.set_float32_matmul_precision(before[0])
+        torch.backends.cuda.matmul.allow_tf32 = before[1]
+        torch.backends.cudnn.allow_tf32 = before[2]
 
 
 def test_store_loads_in_reference_and_resumes_byte_identically(tmp_path):

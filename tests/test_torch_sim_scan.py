@@ -18,6 +18,7 @@ from repro.kernels.sim_scan.kernel import _A_MIN
 from repro.kernels.sim_scan.kernel import sim_durations_scan as jax_scan
 from repro.kernels.sim_scan.ref import sim_durations_ref as jax_ref
 from repro_torch.kernels.sim_scan import sim_durations_ref, sim_durations_scan
+from repro_torch.kernels.sim_scan.ref import ITEMS, THREADS, carry_chain, tile_maps
 
 MIX = dict(tail_prob=0.08, tail_shift=0.35, spike_prob=0.003, spike_scale=8.0)
 
@@ -84,6 +85,43 @@ def test_batched_rows_equal_single_rows():
         assert torch.equal(t[r], tr[0]) and torch.equal(s[r], sr[0])
 
 
+@pytest.mark.parametrize("coeff", [0.35, -0.999])
+def test_look_back_from_any_inclusive_tile_gives_the_serial_carry(coeff):
+    """The kernel's look-back invariant, on the plain version's own tile
+    maps: from the end state of any earlier tile ``k`` (or the row's state,
+    ``k = -1``), applying the aggregates of tiles ``k+1 .. i-1`` one by one
+    to the scalar gives tile ``i``'s carry-in bit for bit, because those
+    are the serial chain's own multiplications and additions."""
+    chunk = THREADS * ITEMS
+    x = _inputs(3, 9 * chunk + 17, seed=11)
+    eps, state = torch.from_numpy(x["eps"]), torch.from_numpy(x["state"])
+    Ea, Eb = tile_maps(eps, coeff)
+    assert Ea.shape == (3, 10, chunk)
+    s = carry_chain(Ea, Eb, state)
+    _, s_ref = sim_durations_ref(eps, *[torch.from_numpy(x[k]) for k in
+                                        ("u_tail", "u_mag", "u_spike")],
+                                 coeff=coeff, state=state,
+                                 t0=torch.from_numpy(x["t0"]), **MIX)
+    assert torch.equal(s.reshape(3, -1)[:, :eps.shape[1]], s_ref)
+    inclusive = [state] + [s[:, m, -1] for m in range(Ea.shape[1])]
+    for i in range(1, Ea.shape[1]):
+        for k in range(-1, i):
+            c = inclusive[k + 1]
+            for m in range(k + 1, i):
+                c = Ea[:, m, -1] * c + Eb[:, m, -1]
+            assert torch.equal(c, inclusive[i]), (i, k)
+    # composing the aggregates with each other first (what a look-back of
+    # the textbook kind does) is another association order: near coeff -1,
+    # where an aggregate's slope coeff**chunk stays away from 0, it rounds
+    # differently, so its carry would depend on where the look-back stopped
+    a, b = Ea[:, 1, -1], Eb[:, 1, -1]
+    for m in range(2, Ea.shape[1]):
+        a, b = Ea[:, m, -1] * a, Ea[:, m, -1] * b + Eb[:, m, -1]
+    composed = a * inclusive[1] + b
+    assert torch.allclose(composed, inclusive[-1], rtol=1e-12, atol=1e-14)
+    assert torch.equal(composed, inclusive[-1]) == (coeff == 0.35)
+
+
 def test_wrapper_runs_plain_version_on_cpu_and_checks_inputs():
     x = _inputs(2, 100, seed=5)
     launches = sim_durations_scan.launches
@@ -111,20 +149,28 @@ def test_wrapper_runs_plain_version_on_cpu_and_checks_inputs():
 @pytest.mark.cuda
 @pytest.mark.parametrize("coeff", [0.35, 0.0, -0.5, 0.9, 0.004, -0.999])
 def test_cuda_kernel_matches_plain_version(coeff):
-    """The Hopper kernel against the plain version on the card. It needs
+    """The Hopper kernel against the plain version on the card, on the
+    grid of ``chip_smoke.py`` phase 3: one row, 30, and more rows than
+    the card has SMs; lengths around one tile (``THREADS * ITEMS``) and
+    the main path's 1e5. Two launches on the same inputs are equal bit
+    for bit (the look-back's carries do not depend on timing). It needs
     a GPU and nvcc: a CUDA kernel has no CPU mode."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the sim_scan CUDA kernel only runs "
                     "on the card (chip_smoke.py runs this check there)")
-    for R, n in ((1, 32), (30, 1000), (30, 100_000)):
-        x = {k: torch.from_numpy(v).cuda()
-             for k, v in _inputs(R, n, seed=R + n).items()}
-        kw = dict(coeff=coeff, state=x["state"], t0=x["t0"], **MIX)
-        rows = [x[k] for k in ("eps", "u_tail", "u_mag", "u_spike")]
-        launches = sim_durations_scan.launches
-        t, s = sim_durations_scan(*rows, **kw)
-        torch.cuda.synchronize()
-        assert sim_durations_scan.launches == launches + 1
-        tr, sr = sim_durations_ref(*rows, **kw)
-        torch.testing.assert_close(t, tr, rtol=1e-12, atol=1e-18)
-        torch.testing.assert_close(s, sr, rtol=1e-12, atol=1e-14)
+    chunk = THREADS * ITEMS
+    for R in (1, 30, 200):
+        for n in (32, 1000, chunk - 1, chunk, chunk + 1, 100_000):
+            x = {k: torch.from_numpy(v).cuda()
+                 for k, v in _inputs(R, n, seed=R + n).items()}
+            kw = dict(coeff=coeff, state=x["state"], t0=x["t0"], **MIX)
+            rows = [x[k] for k in ("eps", "u_tail", "u_mag", "u_spike")]
+            launches = sim_durations_scan.launches
+            t, s = sim_durations_scan(*rows, **kw)
+            t2, s2 = sim_durations_scan(*rows, **kw)
+            torch.cuda.synchronize()
+            assert sim_durations_scan.launches == launches + 2
+            assert torch.equal(t, t2) and torch.equal(s, s2), (R, n)
+            tr, sr = sim_durations_ref(*rows, **kw)
+            torch.testing.assert_close(t, tr, rtol=1e-12, atol=1e-18)
+            torch.testing.assert_close(s, sr, rtol=1e-12, atol=1e-14)
