@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: build the kernels from
 this checkout, hold each against its plain PyTorch version on the card,
-drive the two paths (the simulated measurement campaign, and the kernel
-A/B campaign) at sizes users run, and check what comes out.
+drive the paths (the simulated measurement campaign, the kernel A/B
+campaign, and, on random-walk clocks, campaigns and the barrier scheme)
+at sizes users run, and check what comes out.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -54,8 +55,22 @@ Phases, each of which raises (exit code 1) on failure:
      bf16 tensor-core flash instance); a
      violated guideline (a kernel slower than its plain version) is
      printed, not failed;
- 10. a ``kernels`` JSON line for every kernel of both paths, flash and
-     SSD once per type.
+ 10. random-walk clocks (``rw_sigma`` 1e-7) through the per-epoch engine:
+     card == CPU at atol 1e-12, noise-free from the same state (drift
+     paths grown on the host, inverted and read on the card), and the
+     fused engine's refusal;
+ 11. random-walk campaigns: phase 5's archive spec on walking clocks
+     (each cell within ±10%, every record per epoch), then p = 512, 4
+     epochs, nrep = 100 000, hca, allreduce at 4096 B, with its wall split
+     into clock sync, drift-path growth and uploads, device spans and
+     top-ups, its invalid fraction, ``sim_scan`` launches and peak memory;
+ 12. the barrier scheme: ``run_barrier_timed`` card == CPU at atol 1e-12,
+     noise-free, on affine and walking clocks; then Figs. 11-12's settings
+     at p = 512, nrep 10 000 (the barrier's local-max mean must exceed the
+     window scheme's global mean) with both barriers' skew profiles;
+ 13. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
+     once per type; ``sim_scan``'s entry counts its launches on the main
+     path and on the two paths of phases 11 and 12.
 
 Every timed kernel in phases 3, 7 and 8 has ``nvidia-smi``'s SM clock
 (now and max), power draw and temperature, sampled right before and after
@@ -92,6 +107,9 @@ BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 GEMMA2_ATTN = dict(heads=8, kv_heads=4, head_dim=256)
 MAMBA2_SSD = dict(heads=64, head_dim=64, state_dim=128)
 AB_SEQS = (1024, 4096)
+NOISE_FREE = dict(noise_sigma=0.0, tail_prob=0.0, spike_prob=0.0,
+                  rank_imbalance=0.0, epoch_bias_sigma=0.0, autocorr=0.0)
+RW_SIGMA = 1e-7          # s/sqrt(s), the reference's windowed rw micro-bench
 
 
 def require(ok: bool, what: str) -> None:
@@ -339,15 +357,12 @@ def phase_engines(torch):
     from repro_torch.core import SimNet, make_op, make_sync
     from repro_torch.simengine import run_windowed_epochs_torch, run_windowed_torch
 
-    noise_free = dict(noise_sigma=0.0, tail_prob=0.0, spike_prob=0.0,
-                      rank_imbalance=0.0, epoch_bias_sigma=0.0, autocorr=0.0)
-
     def epochs(E, p):
         out = []
         for e in range(E):
             net = SimNet(p, seed=5 + 1000 * e)
             sync = make_sync("hca", n_fitpts=100, n_exchanges=20).synchronize(net)
-            out.append((net, sync, make_op("allreduce", **noise_free)))
+            out.append((net, sync, make_op("allreduce", **NOISE_FREE)))
         return out
 
     cpu = epochs(1, 16)
@@ -1051,6 +1066,270 @@ def phase_ab(torch, dtype="float32") -> dict:
     return launches
 
 
+def same_run(a, b, fields, what):
+    """``a`` and ``b`` agree at atol 1e-12 on ``fields``, with equal flags
+    where they carry them; returns the largest difference."""
+    import numpy as np
+
+    if hasattr(a, "errors"):
+        require(np.array_equal(a.errors, b.errors), f"{what}: error flags equal")
+    worst = 0.0
+    for k in fields:
+        x, y = getattr(a, k), getattr(b, k)
+        require(x.shape == y.shape and np.array_equal(np.isnan(x), np.isnan(y)),
+                f"{what} {k}: shapes and NaNs equal")
+        err = float(np.nanmax(np.abs(x - y))) if x.size else 0.0
+        require(err <= 1e-12, f"{what} {k}: |err| {err:.3e} <= 1e-12")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_rw_engines(torch, device="cuda", p=16, nrep=2000):
+    """Random-walk clocks through the per-epoch engine on the card against
+    the port on the CPU, noise-free from the same state; the fused engine
+    must refuse them."""
+    import numpy as np
+
+    from repro_torch.core import ClockParams, SimNet, make_op, make_sync
+    from repro_torch.simengine import (SimTorchUnavailable, run_windowed_epochs_torch,
+                                       run_windowed_torch)
+
+    t = time.perf_counter()
+    net = SimNet(p, seed=5, clocks=ClockParams(rw_sigma=RW_SIGMA))
+    sync = make_sync("hca", n_fitpts=100, n_exchanges=20).synchronize(net)
+    cpu = (net, sync, make_op("allreduce", **NOISE_FREE))
+    dev = copy.deepcopy(cpu)
+    worst = 0.0
+    for chunk in (nrep, nrep // 3):          # a second call on the grown paths
+        a = run_windowed_torch(*cpu, 4096, chunk, 300e-6, device="cpu")
+        b = run_windowed_torch(*dev, 4096, chunk, 300e-6, device=device)
+        worst = max(worst, same_run(a, b, ("times", "start_true", "end_true",
+                                           "start_global_est", "end_global_est"),
+                                    f"rw per-epoch nrep {chunk}"))
+        err = float(np.abs(cpu[0].t - dev[0].t).max())
+        require(err <= 1e-12, f"rw per-epoch net.t |err| {err:.3e} <= 1e-12")
+    require(all(np.array_equal(c._path.x, g._path.x)
+                for c, g in zip(cpu[0].clocks, dev[0].clocks)),
+            "drift paths grown identically for both devices")
+    try:
+        run_windowed_epochs_torch([dev[0]], [dev[1]], [dev[2]], 4096, 100, 300e-6,
+                                  device=device)
+    except SimTorchUnavailable:
+        pass
+    else:
+        require(False, "the fused engine refuses walking clocks")
+    print(f"# [10 rw engines] rw_sigma {RW_SIGMA:g}, p={p}, hca, noise-free: per-epoch "
+          f"{device} == cpu at atol 1e-12 (nrep {nrep} then {nrep // 3} on the grown "
+          f"paths; max |err| {worst:.3e}), identical flags and net.t; fused engine "
+          f"raised SimTorchUnavailable; {time.perf_counter() - t:.2f} s")
+
+
+def phase_rw_campaign(torch, device="cuda", p=512, epochs=4, nrep=100_000) -> int:
+    """Walking clocks through the campaign: the archive gate, then one
+    campaign at full width per epoch; returns its sim_scan launches."""
+    import numpy as np
+
+    from repro_torch import simengine
+    from repro_torch.campaign import (Campaign, CampaignSpec, ResultStore,
+                                      TorchSimBackend, backends)
+    from repro_torch.core import ExperimentDesign, TestCase
+    from repro_torch.kernels.sim_scan import sim_durations_scan
+
+    on_card = device == "cuda"
+    t = time.perf_counter()
+    archive = ResultStore(ROOT / "benchmarks" / "reference_archive"
+                          / "run-000.jsonl").to_table()
+    cases = [TestCase(op, m) for op in ("allreduce", "bcast", "alltoall")
+             for m in (512, 4096)]
+    backend = TorchSimBackend(p=8, seed0=0, sync_kw=dict(n_fitpts=60, n_exchanges=20),
+                              clock_kw=dict(rw_sigma=RW_SIGMA), device=device)
+    res = Campaign(CampaignSpec(cases, ExperimentDesign(n_launch_epochs=12, nrep=40,
+                                                        seed=0), name="repro-audit-rw"),
+                   backend).run()
+    require(all(r.meta["engine"] == "torch" and r.meta["device"].startswith(device)
+                and r.meta["fused"] is False for r in res.records),
+            f"rw gate records: engine=torch, {device}, fused=False")
+    cells = []
+    for case in cases:
+        ratio = float(np.median(res.table.medians(case))
+                      / np.median(archive.medians(case)))
+        require(abs(ratio - 1.0) <= 0.10,
+                f"rw gate {case.op}/{case.msize}: median ratio {ratio:.4f} within ±10%")
+        cells.append(f"{case.op}/{case.msize} {ratio:.4f}")
+    print(f"# [11 rw gate] archive spec, clock_kw rw_sigma {RW_SIGMA:g}, per epoch on "
+          f"{device}: median-of-epoch-medians ratio to the archive: " + ", ".join(cells)
+          + f"; {time.perf_counter() - t:.2f} s")
+
+    spans = Spans() if on_card else None
+    host: dict[str, list] = collections.defaultdict(list)
+    runs: list = []
+    topping = [False]
+
+    def host_timed(name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            host[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def engine_call(*args, **kw):
+        t0 = time.perf_counter()
+        out = rwt(*args, **kw)
+        host["top-up calls" if topping[0] else "first calls"].append(
+            time.perf_counter() - t0)
+        runs.append(out)
+        return out
+
+    def top_up(*args, **kw):
+        topping[0] = True
+        try:
+            return top_up0(*args, **kw)
+        finally:
+            topping[0] = False
+
+    rwt, top_up0 = backends.run_windowed_torch, backends.TorchSimBackend._top_up
+    patches = [(simengine, name, host_timed(name, getattr(simengine, name)))
+               for name in ("grow_paths_for_deadlines", "grow_paths_for_reads")]
+    patches.append((simengine._DevicePaths, "upload",
+                    host_timed("upload", simengine._DevicePaths.upload)))
+    if on_card:
+        patches += [(simengine, name, spans.wrap(name, getattr(simengine, name)))
+                    for name in ("_sample", "_window")]
+    patches += [(backends, "run_windowed_torch", engine_call),
+                (backends.TorchSimBackend, "_top_up", top_up),
+                (backends.TorchSimBackend, "make_epoch",
+                 host_timed("make_epoch", backends.TorchSimBackend.make_epoch))]
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        spec = CampaignSpec([TestCase("allreduce", 4096)],
+                            ExperimentDesign(n_launch_epochs=epochs, nrep=nrep, seed=0),
+                            name="rw-campaign")
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        sim_durations_scan.launches = 0
+        t = time.perf_counter()
+        res = Campaign(spec, TorchSimBackend(p=p, seed0=0, clock_kw=dict(rw_sigma=RW_SIGMA),
+                                             device=device)).run()
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = sim_durations_scan.launches
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+    finally:
+        for obj, name, fn in originals:
+            setattr(obj, name, fn)
+    if on_card:
+        require(launches > 0, "rw campaign launched sim_scan")
+    require(len(res.records) == epochs, "rw campaign: one record per epoch")
+    for r in res.records:
+        require(r.meta["fused"] is False and r.meta["device"].startswith(device)
+                and 0 < r.times.size <= nrep and np.isfinite(r.times).all()
+                and (r.times > 0).all(),
+                f"rw campaign epoch {r.epoch}: per epoch on {device}, "
+                f"{r.times.size} valid times, finite and positive")
+    s = {k: sum(v) for k, v in host.items()}
+    n = {k: len(v) for k, v in host.items()}
+    engine_s = s["first calls"] + s.get("top-up calls", 0.0)
+    measured = sum(r.times.size for r in runs)
+    invalid = sum(int(np.count_nonzero(r.errors)) for r in runs)
+    dev_spans = (f"device spans: sampling {spans.ms('_sample') / 1e3:.3f} s, window "
+                 f"{spans.ms('_window') / 1e3:.3f} s" if on_card else "no device spans (CPU)")
+    print(f"# [11 rw campaign] p={p} epochs={epochs} nrep={nrep} hca rw_sigma "
+          f"{RW_SIGMA:g} allreduce@4096, per epoch: wall {wall:.2f} s = clock sync "
+          f"{s['make_epoch']:.2f} s ({n['make_epoch']} epochs) + engine first calls "
+          f"{s['first calls']:.2f} s ({n['first calls']}) + top-up calls "
+          f"{s.get('top-up calls', 0.0):.2f} s ({n.get('top-up calls', 0)}) + rest "
+          f"{wall - s['make_epoch'] - engine_s:.2f} s; inside the engine calls: "
+          f"drift-path growth on the host {s['grow_paths_for_deadlines']:.2f} s "
+          f"(deadlines) + {s['grow_paths_for_reads']:.2f} s (reads), path uploads "
+          f"{s['upload']:.2f} s ({n['upload']} in {len(runs)} calls), {dev_spans}; "
+          f"invalid fraction {invalid / measured:.4f} ({invalid} of {measured}); "
+          f"sim_scan launches {launches}; peak device memory {peak / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_barrier(torch, device="cuda", p=512, nrep=10_000, probes=1000) -> int:
+    """The barrier scheme: noise-free card == CPU on affine and walking
+    clocks, then Figs. 11-12's settings at full width; returns the barrier
+    run's sim_scan launches."""
+    import numpy as np
+
+    from repro_torch.core import (ClockParams, SimNet, make_op, make_sync,
+                                  probe_barrier_skew, run_barrier_timed)
+    from repro_torch.kernels.sim_scan import sim_durations_scan
+    from repro_torch.simengine import run_windowed_torch
+
+    t = time.perf_counter()
+    worst = 0.0
+    for rw in (0.0, RW_SIGMA):
+        for library in (True, False):
+            net = SimNet(16, seed=5, clocks=ClockParams(rw_sigma=rw))
+            sync = make_sync("hca", n_fitpts=100, n_exchanges=20).synchronize(net)
+            cpu = (net, make_op("allreduce", **NOISE_FREE))
+            dev = copy.deepcopy((net, make_op("allreduce", **NOISE_FREE)))
+            kw = dict(sync=sync, use_library_barrier=library)
+            a = run_barrier_timed(*cpu, 4096, 300, device="cpu", **kw)
+            b = run_barrier_timed(*dev, 4096, 300, device=device, **kw)
+            what = f"barrier rw_sigma {rw:g} {'library' if library else 'dissemination'}"
+            worst = max(worst, same_run(a, b, ("times_local", "times_global",
+                                               "barrier_exit_true", "start_true",
+                                               "end_true"), what))
+            err = float(np.abs(cpu[0].t - dev[0].t).max())
+            require(err <= 1e-12, f"{what}: net.t |err| {err:.3e} <= 1e-12")
+    print(f"# [12 barrier] noise-free op, p=16, nrep 300: run_barrier_timed {device} == "
+          f"cpu at atol 1e-12 (max |err| {worst:.3e}) on affine and walking (rw_sigma "
+          f"{RW_SIGMA:g}, lazy) clocks, library and dissemination barriers; "
+          f"{time.perf_counter() - t:.2f} s")
+
+    # Figs. 11-12 (benchmarks/suite.py bench_fig11_12_barrier, its SYNC_KW)
+    # at full width
+    t = time.perf_counter()
+    op_kw = dict(rank_imbalance=0.01, noise_sigma=0.01, tail_prob=0.0)
+    net = SimNet(p, seed=11)
+    sync = make_sync("hca", n_fitpts=200, n_exchanges=40).synchronize(net)
+    t_sync = time.perf_counter() - t
+    t = time.perf_counter()
+    wr = run_windowed_torch(net, sync, make_op("allreduce", **op_kw), 32768, nrep,
+                            500e-6, device=device)
+    t_window = time.perf_counter() - t
+    net2 = SimNet(p, seed=11)
+    sim_durations_scan.launches = 0
+    t = time.perf_counter()
+    br = run_barrier_timed(net2, make_op("allreduce", **op_kw), 32768, nrep,
+                           barrier_exit_skew=40e-6, device=device)
+    t_barrier = time.perf_counter() - t
+    launches = sim_durations_scan.launches
+    if device == "cuda":
+        require(launches > 0, "barrier scheme launched sim_scan")
+    t = time.perf_counter()
+    lib = probe_barrier_skew(SimNet(p, seed=12), nrep=probes, barrier_exit_skew=40e-6)
+    dis = probe_barrier_skew(SimNet(p, seed=12), nrep=probes, use_library_barrier=False)
+    t_probe = time.perf_counter() - t
+    window_mean = float(wr.valid_times.mean())
+    barrier_mean = float(br.times_local.mean())
+    require(wr.valid_times.size > 0 and np.isfinite(br.times_local).all()
+            and br.times_local.shape == (nrep,), "barrier and window runs finite")
+    require(barrier_mean > window_mean,
+            f"Fig. 11: barrier local-max mean {barrier_mean * 1e6:.3f} us > window "
+            f"global mean {window_mean * 1e6:.3f} us")
+    lib_max, dis_max = float(lib.mean(axis=0).max()), float(dis.mean(axis=0).max())
+    require(lib_max > dis_max, "Fig. 12: the library barrier's exit skew exceeds "
+            "the dissemination barrier's")
+    print(f"# [12 barrier] p={p} nrep {nrep} allreduce@32768 {op_kw}: window (hca "
+          f"200x40, 500 us) global mean {window_mean * 1e6:.3f} us ({wr.invalid_fraction:.4f} "
+          f"invalid), barrier (library, 40 us exit skew) local-max mean "
+          f"{barrier_mean * 1e6:.3f} us: {barrier_mean / window_mean:.3f}x; exit skew, "
+          f"largest per-rank mean over {probes} barriers: library "
+          f"{lib_max * 1e6:.3f} us, dissemination {dis_max * 1e6:.3f} us; sim_scan "
+          f"launches {launches}; hca sync {t_sync:.2f} s, window {t_window:.2f} s, "
+          f"barrier {t_barrier:.2f} s, probes {t_probe:.2f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1074,6 +1353,12 @@ def main() -> int:
     ab16 = phase_ab(torch, "bfloat16")
     flash["launches"], flash_bf16["launches"] = ab32["tf32x3"], ab16["wgmma_bf16"]
     ssd["launches"], ssd_bf16["launches"] = ab32["ssd_scan"], ab16["ssd_scan"]
+    # the two paths of random-walk clocks and the barrier scheme
+    t = time.perf_counter()
+    phase_rw_engines(torch)
+    kernel["launches_rw_campaign"] = phase_rw_campaign(torch)
+    kernel["launches_barrier"] = phase_barrier(torch)
+    print(f"# [10-12] {time.perf_counter() - t:.2f} s")
     print(json.dumps({"kernels": [kernel, flash, flash_bf16, ssd, ssd_bf16]}))
     print(f"# total {time.perf_counter() - t0:.1f} s")
     print(smi())

@@ -18,13 +18,19 @@ The second path is the kernel A/B campaign:
 each measured against its plain PyTorch version with the paper's method
 (launch epochs, Wilcoxon, Holm).
 
+The barrier scheme, the paper's comparator for windows (§4.6, Figs. 11-12),
+is :func:`~repro_torch.core.run_barrier_timed`: the barrier loop on the
+host, the operation's durations drawn on the device through ``sim_scan``.
+Random-walk clocks (``ClockParams(rw_sigma=...)``) run on both paths.
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 each kernel's plain PyTorch version runs instead.
 """
 
 from .campaign import (Campaign, CampaignResult, CampaignSpec, ResultStore,
                        TorchKernelBackend, TorchSimBackend)
-from .core import ExperimentDesign, TestCase
+from .core import (BarrierRun, ExperimentDesign, TestCase, probe_barrier_skew,
+                   run_barrier_timed, run_design)
 
 __all__ = [
     "Campaign",
@@ -35,4 +41,8 @@ __all__ = [
     "TorchKernelBackend",
     "ExperimentDesign",
     "TestCase",
+    "run_design",
+    "run_barrier_timed",
+    "probe_barrier_skew",
+    "BarrierRun",
 ]

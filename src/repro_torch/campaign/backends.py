@@ -31,8 +31,8 @@ from ..core.runtime_meter import MeterConfig, TorchEpochContext
 from ..core.simnet import ClockParams, SimNet
 from ..core.sync import SYNC_CLASSES, make_sync
 from ..kernels.ops import IMPLS, make_benchmark_op
-from ..simengine import (SimTorchUnavailable, resolve_device,
-                         run_windowed_epochs_torch, run_windowed_torch)
+from ..simengine import (resolve_device, run_windowed_epochs_torch,
+                         run_windowed_torch)
 
 __all__ = ["MeasurementBackend", "TorchSimBackend", "TorchKernelBackend"]
 
@@ -174,10 +174,6 @@ class TorchSimBackend:
         resolve_device(self.device)
 
     def make_epoch(self, epoch: int) -> _TorchSimEpoch:
-        if self.clock_kw.get("rw_sigma", 0.0) > 0.0:
-            raise SimTorchUnavailable(
-                "TorchSimBackend: random-walk clocks (clock_kw rw_sigma > 0) "
-                "are not ported; the torch engine needs affine clocks")
         if self.buffer_policy not in ("warm", "cold"):
             raise ValueError(f"TorchSimBackend: buffer_policy must be 'warm' "
                              f"or 'cold', got {self.buffer_policy!r}")
@@ -235,11 +231,14 @@ class TorchSimBackend:
         :func:`~repro_torch.core.design.measure_adaptive`.
 
         Returns ``{(op, msize, epoch): (times, meta)}`` covering every case
-        in ``work``, or ``None`` when fusing is off or the epochs share one
-        cluster (``epoch_isolation="none"``): the caller then measures per
-        epoch.
+        in ``work``, or ``None`` when fusing is off, the epochs share one
+        cluster (``epoch_isolation="none"``) or the clocks walk
+        (``clock_kw["rw_sigma"] > 0``, which the fused window cannot
+        convert): the caller then measures per epoch.
         """
         if not self.fuse_epochs or self.epoch_isolation != "process":
+            return None
+        if self.clock_kw.get("rw_sigma", 0.0) > 0.0:
             return None
         if not work or all(not cases for cases in work.values()):
             return None

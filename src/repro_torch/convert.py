@@ -5,8 +5,9 @@ cluster and synchronizes it with the reference, then hands the same state
 to both engines; or it draws kernel inputs once and hands the same
 tensors to both packages (:func:`tensors_from_reference`). The reference's objects are read duck-typed, as plain
 numbers and numpy arrays (clock parameters, ``net.t``, the RNG's
-``bit_generator.state``, the sync models, an op's cost parameters and
-AR(1) state), so this module imports nothing of the reference package.
+``bit_generator.state``, a clock's random-walk state and drift path, the
+sync models, an op's cost parameters and AR(1) state), so this module
+imports nothing of the reference package.
 
 An op's epoch-bias cache is not carried: it is keyed by the reference's
 net object. A converted op draws its bias from the converted net's RNG on
@@ -21,12 +22,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from .core.clocks import LinearModel, SimClock
+from .core.clocks import DriftPath, LinearModel, SimClock
 from .core.mpi_ops import SimCollective, SimCompositeOp
 from .core.simnet import ClockParams, NetParams, SimNet
 from .core.sync.base import SyncResult
 
-__all__ = ["net_from_reference", "sync_from_reference", "op_from_reference",
+__all__ = ["clock_from_reference", "net_from_reference", "sync_from_reference", "op_from_reference",
            "tensors_from_reference"]
 
 
@@ -36,19 +37,40 @@ def _fields(cls, obj) -> dict:
             if f.init}
 
 
+def _rng_from_reference(rng) -> np.random.Generator:
+    out = np.random.default_rng()
+    out.bit_generator.state = copy.deepcopy(rng.bit_generator.state)
+    return out
+
+
+def clock_from_reference(c) -> SimClock:
+    """A port :class:`SimClock` in the state of the reference clock ``c``:
+    its parameters, the lazy walk's stream position and last sample, and
+    its drift path (nodes and stream) when one is active."""
+    out = SimClock(offset=float(c.offset), skew=float(c.skew),
+                   rw_sigma=float(c.rw_sigma),
+                   scale_error=float(c.scale_error), seed=int(c.seed))
+    out._rng = _rng_from_reference(c._rng)
+    out._rw_t, out._rw_x = float(c._rw_t), float(c._rw_x)
+    path = c._path
+    if path is not None:
+        out._path = DriftPath(sigma=float(path.sigma), dt=float(path.dt),
+                              rng=_rng_from_reference(path.rng),
+                              t=np.array(path.t, dtype=np.float64),
+                              x=np.array(path.x, dtype=np.float64))
+    return out
+
+
 def net_from_reference(net) -> SimNet:
-    """A port :class:`SimNet` in the state of the reference ``net``: clocks,
-    per-host true times, message count and the RNG's position."""
+    """A port :class:`SimNet` in the state of the reference ``net``: clocks
+    (random walks included), per-host true times, message count and the
+    RNG's position."""
     out = SimNet(net.p, net=NetParams(**_fields(NetParams, net.net)),
                  clocks=ClockParams(**_fields(ClockParams, net.clock_params)))
-    out.clocks = [SimClock(offset=float(c.offset), skew=float(c.skew),
-                           rw_sigma=float(c.rw_sigma),
-                           scale_error=float(c.scale_error), seed=int(c.seed))
-                  for c in net.clocks]
+    out.clocks = [clock_from_reference(c) for c in net.clocks]
     out.t = np.array(net.t, dtype=np.float64)
     out.msg_count = int(net.msg_count)
-    out.rng = np.random.default_rng()
-    out.rng.bit_generator.state = copy.deepcopy(net.rng.bit_generator.state)
+    out.rng = _rng_from_reference(net.rng)
     return out
 
 

@@ -13,11 +13,20 @@ experimental factor* (§5.2). A sound benchmark therefore
   5. summarizes each epoch by its mean *and* median, producing a
      *distribution of averages* over epochs for the hypothesis test.
 
-Epochs run serially here; fan-out over worker processes is not ported yet.
+Launch epochs are independent by construction (§5.2: each is its own
+process instantiation), so :func:`run_design` can execute them across a
+``ProcessPoolExecutor`` (``n_workers > 1``) of *spawned* workers: a worker
+that measures on ``"cuda"`` opens its own context on the same card.
+Per-epoch case orders are drawn up front from the design seed in the
+exact serial order, so the parallel run reproduces the serial records
+bit for bit as long as the factory/measure pair derives all randomness
+from the epoch index (which the simulation backend does).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable
 
@@ -34,6 +43,8 @@ __all__ = [
     "case_orders",
     "measure_case",
     "measure_adaptive",
+    "run_design",
+    "map_parallel",
     "analyze_records",
     "NREP_SPENT",
 ]
@@ -104,6 +115,10 @@ class ExperimentDesign:
     @property
     def adaptive(self) -> bool:
         return self.nrep_max is not None
+
+    def replace(self, **overrides) -> "ExperimentDesign":
+        """A copy with the given fields overridden."""
+        return dataclasses.replace(self, **overrides)
 
 
 @dataclass
@@ -240,6 +255,23 @@ def measure_case(
     return times, meta
 
 
+def _measure_epoch(
+    epoch_factory: Callable[[int], Any],
+    measure: Callable[[Any, TestCase, int], np.ndarray],
+    epoch: int,
+    order: list[TestCase],
+    design: ExperimentDesign,
+) -> list[tuple[TestCase, np.ndarray, dict]]:
+    """One launch epoch: build a fresh context and measure every case in
+    the given (already shuffled) order. Module-level so it can cross a
+    process boundary."""
+    ctx = epoch_factory(epoch)
+    return [
+        (case, *measure_case(measure, ctx, case, design))
+        for case in order
+    ]
+
+
 def case_orders(design: ExperimentDesign,
                 cases: Iterable[TestCase]) -> list[list[TestCase]]:
     """Per-epoch case orders, drawn up front from the design seed (Alg. 5
@@ -255,6 +287,210 @@ def case_orders(design: ExperimentDesign,
             order = [order[i] for i in perm]
         orders.append(order)
     return orders
+
+
+def _as_backend_pair(backend_or_factory, measure):
+    """Accept either a :class:`~repro_torch.campaign.MeasurementBackend`
+    (has ``make_epoch`` + ``measure``) or the **deprecated** legacy
+    ``(epoch_factory, measure)`` pair; return the pair.
+
+    The backend protocol is the single entry point: it carries factor
+    capture, default cases and provenance that the bare pair cannot.
+    """
+    if measure is None:
+        if not (hasattr(backend_or_factory, "make_epoch")
+                and hasattr(backend_or_factory, "measure")):
+            raise TypeError(
+                "run_design: pass a MeasurementBackend, or an epoch_factory "
+                "together with a measure callable")
+        return backend_or_factory.make_epoch, backend_or_factory.measure
+    warnings.warn(
+        "run_design(epoch_factory, measure) is deprecated; pass an object "
+        "with make_epoch and measure (the MeasurementBackend protocol is "
+        "the single entry point)",
+        DeprecationWarning, stacklevel=3)
+    return backend_or_factory, measure
+
+
+def run_design(
+    design: ExperimentDesign,
+    backend: Any,
+    measure: Callable[[Any, TestCase, int], np.ndarray] | None = None,
+    cases: Iterable[TestCase] | None = None,
+    n_workers: int = 1,
+) -> list[MeasurementRecord]:
+    """Algorithm 5: ``n`` launch epochs, each measuring all cases in a
+    freshly shuffled order.
+
+    ``backend`` is either a :class:`~repro_torch.campaign.MeasurementBackend`
+    (``measure`` omitted; ``cases`` defaults to ``backend.default_cases()``)
+    or, legacy form, an ``epoch_factory`` callable paired with an explicit
+    ``measure``.
+
+    With ``n_workers > 1`` the epochs — independent by the paper's own
+    design — run across a ``ProcessPoolExecutor``. Records come back in
+    the serial order (epoch-major, then shuffled case order) and are
+    bit-identical to a serial run whenever the factory/measure pair is
+    deterministic per epoch index. Falls back to the serial loop, with a
+    warning, when the callables cannot be pickled or no pool can be
+    spawned; a backend on ``"cuda"`` still measures on the card there.
+    """
+    if cases is None:
+        if hasattr(backend, "default_cases"):
+            cases = backend.default_cases()
+        else:
+            raise TypeError("run_design: cases is required unless the "
+                            "backend provides default_cases()")
+    epoch_factory, measure = _as_backend_pair(backend, measure)
+    cases = list(cases)
+    orders = case_orders(design, cases)
+
+    per_epoch: list[list[tuple[TestCase, np.ndarray, dict]]] | None = None
+    if n_workers and n_workers > 1 and design.n_launch_epochs > 1:
+        per_epoch = _run_epochs_parallel(
+            design, epoch_factory, measure, orders, n_workers)
+    if per_epoch is None:
+        per_epoch = [
+            _measure_epoch(epoch_factory, measure, epoch, orders[epoch],
+                           design)
+            for epoch in range(design.n_launch_epochs)
+        ]
+
+    records: list[MeasurementRecord] = []
+    for epoch, results in enumerate(per_epoch):
+        for case, times, meta in results:
+            records.append(MeasurementRecord(case=case, epoch=epoch,
+                                             times=times, meta=meta))
+    return records
+
+
+def map_parallel(
+    fn: Callable,
+    argtuples: list[tuple],
+    n_workers: int,
+    what: str = "tasks",
+    on_result: Callable[[int, Any], None] | None = None,
+    timeout: float | None = None,
+    max_restarts: int = 1,
+    retry: Any | None = None,
+) -> list | None:
+    """Run ``fn(*args)`` for every argtuple across a ``ProcessPoolExecutor``.
+
+    The fan-out machinery of :func:`run_design` (launch epochs). Workers
+    are *spawned*, never forked: a forked child cannot use a CUDA context
+    its parent opened, while a spawned one opens its own. Results come
+    back in submission order; ``on_result(index, result)`` fires in the
+    *parent* as each task completes (completion order).
+
+    Failure semantics distinguish *setup* from *execution*:
+
+    * **Setup failure** — unpicklable callables/args, or the first pool
+      refusing to spawn — returns ``None`` so the caller falls back to its
+      serial loop: nothing has run yet, serial is a faithful substitute.
+    * **Worker crash mid-run** (``BrokenProcessPool``) restarts the pool
+      and resubmits only the unfinished tasks, backing off between
+      restarts (``retry``, a :class:`~.retry.RetryPolicy`;
+      default two quick jittered restarts). The warning names exactly
+      which task indices were in flight. After ``max_restarts`` the
+      exception is **re-raised** — a pool that keeps dying is a fault the
+      caller must see, not silently absorb into a serial run whose
+      completion would misattribute the crash to nothing.
+    * **Stall** — no task completing within ``timeout`` seconds — raises
+      ``TimeoutError`` naming the in-flight tasks after terminating the
+      pool's workers: a hung worker must not wedge the campaign forever.
+      ``None`` (default) waits indefinitely, the pre-existing behavior.
+    """
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import pickle
+
+    from .retry import RetryPolicy
+
+    if not argtuples:
+        return []
+    try:
+        pickle.dumps((fn, argtuples))
+    except Exception:
+        warnings.warn(
+            f"map_parallel: {what} not picklable; running serially",
+            RuntimeWarning, stacklevel=3)
+        return None
+    mp_ctx = mp.get_context("spawn")
+    if retry is None:
+        retry = RetryPolicy(base=0.1, max_delay=1.0,
+                            attempts=max_restarts + 1, seed=0)
+
+    out: list = [None] * len(argtuples)
+    done_idx: set[int] = set()
+    restarts = 0
+    while True:
+        pending_idx = [i for i in range(len(argtuples)) if i not in done_idx]
+        try:
+            pool = cf.ProcessPoolExecutor(
+                max_workers=min(n_workers, len(pending_idx)),
+                mp_context=mp_ctx)
+        except OSError as e:
+            if restarts:        # a pool ran and died, and now none spawns:
+                raise           # that is a fault, not a setup condition
+            warnings.warn(
+                f"map_parallel: no process pool available ({e!r}); running "
+                f"{what} serially", RuntimeWarning, stacklevel=3)
+            return None
+        try:
+            with pool:
+                futures = {pool.submit(fn, *argtuples[i]): i
+                           for i in pending_idx}
+                not_done = set(futures)
+                while not_done:
+                    done, not_done = cf.wait(
+                        not_done, timeout=timeout,
+                        return_when=cf.FIRST_COMPLETED)
+                    if not done:
+                        in_flight = sorted(futures[f] for f in not_done)
+                        # a hung worker would block pool.__exit__ forever;
+                        # kill the workers so the TimeoutError actually
+                        # returns control to the caller
+                        for p in getattr(pool, "_processes", {}).values():
+                            p.terminate()
+                        pool.shutdown(wait=False, cancel_futures=True)
+                        raise TimeoutError(
+                            f"map_parallel: no {what} completed within "
+                            f"{timeout}s; in flight: {in_flight}")
+                    for fut in done:
+                        i = futures[fut]
+                        out[i] = fut.result()
+                        done_idx.add(i)
+                        if on_result is not None:
+                            on_result(i, out[i])
+            return out
+        except cf.process.BrokenProcessPool as e:
+            in_flight = sorted(i for i in pending_idx if i not in done_idx)
+            if restarts >= max_restarts:
+                raise cf.process.BrokenProcessPool(
+                    f"map_parallel: pool died {restarts + 1}x running {what}; "
+                    f"giving up with {len(in_flight)} tasks unfinished: "
+                    f"{in_flight}") from e
+            delay = retry.delay(restarts)
+            warnings.warn(
+                f"map_parallel: a worker process died ({e!r}); "
+                f"{len(in_flight)}/{len(argtuples)} {what} in flight: "
+                f"{in_flight}; restarting pool in {delay:.2f}s "
+                f"({restarts + 1}/{max_restarts} restarts)",
+                RuntimeWarning, stacklevel=3)
+            import time as _time
+
+            _time.sleep(delay)
+            restarts += 1
+
+
+def _run_epochs_parallel(design, epoch_factory, measure, orders, n_workers):
+    """Fan the launch epochs out over processes; ``None`` on any setup
+    failure so :func:`run_design` runs serially instead."""
+    return map_parallel(
+        _measure_epoch,
+        [(epoch_factory, measure, epoch, orders[epoch], design)
+         for epoch in range(design.n_launch_epochs)],
+        n_workers, what="epoch_factory/measure")
 
 
 def analyze_records(

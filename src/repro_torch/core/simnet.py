@@ -4,7 +4,8 @@ Host-side numpy, copied from the JAX package's ``repro.core.simnet`` with
 the draws in the same order, so that one seed gives both packages the same
 clocks, network latencies and synchronization. It models:
 
-  * per-host hardware clocks (offset + skew), see :mod:`.clocks`,
+  * per-host hardware clocks (offset + skew + optional random walk),
+    see :mod:`.clocks`,
   * a host network with lognormal one-way latency noise and occasional
     OS-noise spikes (the heavy right tail of Fig. 32),
   * per-host "program counter" timelines so hierarchical rounds of
@@ -22,7 +23,7 @@ import numpy as np
 
 from .clocks import SimClock
 
-__all__ = ["NetParams", "ClockParams", "SimNet"]
+__all__ = ["NetParams", "ClockParams", "SimNet", "PingPongSample"]
 
 
 @dataclass
@@ -44,8 +45,17 @@ class ClockParams:
 
     offset_spread: float = 5e-3     # initial offsets ~ U(-spread, +spread) [s]
     skew_sigma: float = 5e-6        # relative frequency error ~ N(0, sigma)
-    rw_sigma: float = 0.0           # oscillator random walk (not ported)
+    rw_sigma: float = 0.0           # oscillator random walk [s / sqrt(s)]
     freq_est_sigma: float = 0.0     # frequency-estimation error (§4.2.1)
+
+
+@dataclass
+class PingPongSample:
+    """Timestamps of one ping-pong exchange (client -> server -> client)."""
+
+    t_send_client: float   # client local clock when the ping was sent
+    t_server: float        # server local clock when it stamped the reply
+    t_recv_client: float   # client local clock when the reply arrived
 
 
 class SimNet:
@@ -82,6 +92,42 @@ class SimNet:
         """Read host ``r``'s hardware clock (what GET_TIME returns)."""
         return self.clocks[r].read(self.t[r])
 
+    def true_time(self, r: int) -> float:
+        """Simulator-only ground truth; never exposed to algorithms."""
+        return float(self.t[r])
+
+    def true_time_at_local(self, r: int, local: float) -> float:
+        """Invert host ``r``'s clock (simulator bookkeeping for waits):
+        exact for affine clocks and for walking clocks in drift-path mode;
+        a lazy walk is frozen at its last sampled value."""
+        return self.clocks[r].true_at_local(local)
+
+    def freeze_drift_paths(self, dt: float, ranks: list[int] | None = None):
+        """Switch the given clocks' random walks to pre-sampled drift-path
+        mode (node spacing ``dt``); idempotent. The device engine does this
+        itself for walking clocks; tests freeze two nets up front so that
+        two engines traverse identical walks."""
+        ranks = range(self.p) if ranks is None else ranks
+        return [self.clocks[r].drift_path(dt) for r in ranks]
+
+    def advance(self, r: int, dt: float) -> None:
+        """Host ``r`` computes locally for ``dt`` true seconds."""
+        self.t[r] += max(0.0, dt)
+
+    def wait_until_local(self, r: int, local_deadline: float) -> bool:
+        """Busy-wait host ``r`` until its local clock shows
+        ``local_deadline``; ``False`` if the deadline already passed (the
+        window scheme's START_LATE)."""
+        target = self.true_time_at_local(r, local_deadline)
+        if target <= self.t[r]:
+            return False
+        self.t[r] = target
+        return True
+
+    def sleep_all(self, dt: float) -> None:
+        """All hosts idle for ``dt`` true seconds (used between probes)."""
+        self.t += dt
+
     # --------------------------------------------------------------- network
     def _latency(self) -> float:
         lat = self.net.one_way * float(self.rng.lognormal(0.0, self.net.jitter_sigma))
@@ -98,6 +144,16 @@ class SimNet:
         arrival = max(self.t[dst], send_done + self._latency())
         self.t[dst] = arrival + self.net.proc_overhead
 
+    def pingpong(self, client: int, server: int) -> PingPongSample:
+        """One client->server->client exchange with local timestamps, each
+        read through the clock (the walk included)."""
+        t_send_client = self.local_time(client)
+        self.transfer(client, server)
+        t_server = self.local_time(server)
+        self.transfer(server, client)
+        t_recv_client = self.local_time(client)
+        return PingPongSample(t_send_client, t_server, t_recv_client)
+
     def _latencies(self, n: int) -> np.ndarray:
         lat = self.net.one_way * self.rng.lognormal(0.0, self.net.jitter_sigma, size=n)
         spikes = self.rng.random(n) < self.net.spike_prob
@@ -108,7 +164,8 @@ class SimNet:
         """``n`` back-to-back client->server->client exchanges (the primitive
         under SKAMPI_PINGPONG, COMPUTE_OFFSET, COMPUTE_RTT and the JK/HCA
         fitpoints). Returns local-clock arrays ``(t_send_client, t_server,
-        t_recv_client)``."""
+        t_recv_client)``, read through each clock's affine part: the walk
+        is left out here, as the reference leaves it out."""
         if n <= 0:
             return (np.empty(0), np.empty(0), np.empty(0))
         oh = self.net.proc_overhead
@@ -135,6 +192,57 @@ class SimNet:
         s = self.clocks[server]
         return (c.read_affine(send), s.read_affine(srv), c.read_affine(recv))
 
+    # -------------------------------------------------------------- barriers
+    def dissemination_barrier(self, ranks: list[int] | None = None) -> np.ndarray:
+        """Dissemination barrier (§4.6): ``ceil(log2 p)`` rounds; in round
+        ``k`` rank ``i`` signals ``(i + 2^k) mod p`` and proceeds once it
+        heard from ``(i - 2^k) mod p``, each round one latency-vector
+        update. Returns the per-rank *true* exit times."""
+        ranks = list(range(self.p)) if ranks is None else ranks
+        n = len(ranks)
+        oh = self.net.proc_overhead
+        t = self.t[ranks]
+        k = 1
+        while k < n:
+            send_time = t + oh
+            # rotate right by k: receiver i hears from (i - k) mod n
+            rotated = np.concatenate((send_time[n - k:], send_time[:n - k]))
+            arrival = rotated + self._latencies(n)
+            t = np.maximum(t + oh, arrival)
+            self.msg_count += n
+            k *= 2
+        self.t[ranks] = t
+        return t.copy()
+
+    def _dissemination_barrier_scalar(self, ranks: list[int] | None = None) -> np.ndarray:
+        """Per-rank scalar version of :meth:`dissemination_barrier`."""
+        ranks = list(range(self.p)) if ranks is None else ranks
+        n = len(ranks)
+        idx = {r: i for i, r in enumerate(ranks)}
+        k = 1
+        while k < n:
+            send_time = {r: self.t[r] + self.net.proc_overhead for r in ranks}
+            for r in ranks:
+                src = ranks[(idx[r] - k) % n]
+                arrival = send_time[src] + self._latency()
+                self.t[r] = max(self.t[r] + self.net.proc_overhead, arrival)
+                self.msg_count += 1
+            k *= 2
+        return self.t[ranks].copy()
+
+    def library_barrier(self, exit_skew: float = 0.0, ranks: list[int] | None = None) -> np.ndarray:
+        """An opaque library barrier with an *exit skew* (§4.6): ranks
+        leave up to ``exit_skew`` apart, linearly in rank (Fig. 12's
+        MVAPICH barrier); with ``exit_skew=0`` the dissemination barrier."""
+        ranks = list(range(self.p)) if ranks is None else ranks
+        out = self.dissemination_barrier(ranks)
+        if exit_skew > 0.0:
+            n = len(ranks)
+            bias = exit_skew * np.arange(n) / max(1, n - 1)
+            bias = bias + self.rng.normal(0.0, 0.05 * exit_skew, size=n)
+            self.t[ranks] += np.maximum(0.0, bias)
+        return self.t[ranks].copy()
+
     # ------------------------------------------------------------- utilities
     def elapsed_snapshot(self) -> np.ndarray:
         return self.t.copy()
@@ -149,3 +257,8 @@ class SimNet:
         tmax = float(np.max(self.t[ranks]))
         for r in ranks:
             self.t[r] = tmax
+
+    def true_offset(self, r: int, ref: int = 0) -> float:
+        """Ground-truth clock offset of ``r`` vs ``ref`` at the current moment."""
+        t = max(self.t[r], self.t[ref])
+        return self.clocks[r].read(t) - self.clocks[ref].read(t)

@@ -1,11 +1,13 @@
 """The statistics the experimental design needs (§3.5, §3.4, §6.2).
 
-Copied from the JAX package's ``repro.core.stats`` (numpy only): Tukey's
-outlier filter, the relative CI half-width of the mean behind
-adaptive-``nrep`` stopping, and the Wilcoxon rank-sum test with Holm's
+Copied from the JAX package's ``repro.core.stats`` (numpy and ``math``
+only): Tukey's outlier filter, the relative CI half-width of the mean
+behind adaptive-``nrep`` stopping, the Wilcoxon rank-sum test with Holm's
 step-down correction and the paper's significance stars that compare two
-implementations and verify guideline families. The tests that certify the
-port run the reference package's own statistics on its results.
+implementations and verify guideline families, the TOST equivalence test
+and bootstrap intervals that certify a reproduction, the Kruskal-Wallis
+test and Cliff's delta that rank factors, and the normality and
+autocorrelation diagnostics of §5.1 and §5.3.
 """
 
 from __future__ import annotations
@@ -26,6 +28,16 @@ __all__ = [
     "wilcoxon_rank_sum",
     "holm_bonferroni",
     "significance_stars",
+    "TostResult",
+    "tost_wilcoxon",
+    "bootstrap_ci",
+    "chi2_sf",
+    "kruskal_wallis",
+    "cliffs_delta",
+    "jarque_bera",
+    "autocorrelation",
+    "autocorr_significant_lags",
+    "coefficient_of_variation",
 ]
 
 
@@ -227,6 +239,98 @@ def wilcoxon_rank_sum(a: np.ndarray, b: np.ndarray,
                          alternative=alternative, n_a=n1, n_b=n2)
 
 
+@dataclass(frozen=True)
+class TostResult:
+    """Outcome of a two-one-sided-tests (TOST) equivalence test."""
+
+    p_value: float         # max of the two one-sided p-values
+    p_lower: float         # H_a: a > (1 - margin) * b  (not too far below)
+    p_upper: float         # H_a: a < (1 + margin) * b  (not too far above)
+    margin: float
+    n_a: int
+    n_b: int
+
+    def equivalent(self, alpha: float = 0.05) -> bool:
+        """Equivalence demonstrated at ``alpha`` — deliberately a method,
+        not a 5%-hardcoded property: certifying at the wrong level is the
+        dangerous direction, and family-wise users must pass their
+        *corrected* threshold."""
+        return self.p_value <= alpha
+
+
+def tost_wilcoxon(a: np.ndarray, b: np.ndarray,
+                  margin: float = 0.10) -> TostResult:
+    """Nonparametric TOST equivalence test with a *relative* margin.
+
+    Difference tests (the Wilcoxon above) can only ever *fail to refute*
+    sameness — "no significant difference" is weak evidence that gets
+    weaker as the sample shrinks. Certifying reproducibility needs the
+    burden of proof reversed: the null hypothesis here is *non*-equivalence
+    (``a`` below ``(1-margin)·b`` or above ``(1+margin)·b``), and only data
+    can overturn it. Both one-sided nulls are tested by the Wilcoxon
+    rank-sum against the margin-scaled ``b`` sample; rejecting both (the
+    reported ``p_value`` is the max, the standard intersection-union
+    argument, no multiplicity correction needed between the pair) concludes
+    that ``a`` lies within ``±margin`` of ``b`` on the ratio scale.
+
+    Run-times are strictly positive, which is what makes the relative
+    margin (and the scaling of ``b``) meaningful; both samples are
+    required to be > 0.
+
+    Each one-sided p is floored at ``1 / C(n_a+n_b, n_a)`` — the exact
+    probability of complete separation under H0, the smallest p the exact
+    rank-sum test can produce. The normal approximation dips *below* that
+    at tiny n, and for an equivalence test anti-conservatism is the
+    dangerous direction: it would let two or three noisy epochs "certify"
+    a reproduction.
+    """
+    if not 0.0 < margin < 1.0:
+        raise ValueError(f"margin must be in (0, 1), got {margin}")
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    if a.size == 0 or b.size == 0:
+        raise ValueError("empty sample")
+    if np.any(a <= 0) or np.any(b <= 0):
+        raise ValueError("tost_wilcoxon: a relative margin needs strictly "
+                         "positive samples (run-times)")
+    p_min = 1.0 / math.comb(a.size + b.size, a.size)
+    p_lower = max(p_min,
+                  wilcoxon_rank_sum(a, (1.0 - margin) * b, "greater").p_value)
+    p_upper = max(p_min,
+                  wilcoxon_rank_sum(a, (1.0 + margin) * b, "less").p_value)
+    return TostResult(p_value=float(max(p_lower, p_upper)),
+                      p_lower=float(p_lower), p_upper=float(p_upper),
+                      margin=float(margin), n_a=a.size, n_b=b.size)
+
+
+def bootstrap_ci(statistic, samples, n_boot: int = 1000,
+                 level: float = 0.95, seed: int = 0) -> tuple[float, float]:
+    """Percentile-bootstrap confidence interval of ``statistic(*samples)``.
+
+    Each sample is resampled independently with replacement (they come
+    from independent runs/epochs), the statistic is recomputed per
+    replicate, and the ``(1-level)/2`` tails of the replicate distribution
+    are the interval. Distribution-free — the right companion for a
+    statistic like the ratio of medians, whose sampling distribution has
+    no usable closed form in the paper's non-normal regime.
+    """
+    if not 0.0 < level < 1.0:
+        raise ValueError(f"level must be in (0, 1), got {level}")
+    if n_boot < 1:
+        raise ValueError(f"n_boot must be >= 1, got {n_boot}")
+    arrays = [np.asarray(s, dtype=np.float64) for s in samples]
+    if not arrays or any(s.size == 0 for s in arrays):
+        raise ValueError("empty sample")
+    rng = np.random.default_rng(seed)
+    reps = np.empty(n_boot, dtype=np.float64)
+    for i in range(n_boot):
+        reps[i] = statistic(*(s[rng.integers(0, s.size, s.size)]
+                              for s in arrays))
+    tail = 100.0 * (1.0 - level) / 2.0
+    lo, hi = np.percentile(reps, [tail, 100.0 - tail])
+    return float(lo), float(hi)
+
+
 def holm_bonferroni(pvals) -> np.ndarray:
     """Holm's step-down adjusted p-values (family-wise error control).
 
@@ -254,6 +358,93 @@ def holm_bonferroni(pvals) -> np.ndarray:
     return adj
 
 
+def chi2_sf(x: float, df: int) -> float:
+    """Chi-square survival function ``P(X > x)`` for integer ``df``.
+
+    Closed forms via the regularized upper incomplete gamma at integer and
+    half-integer shape (no SciPy): for even ``df`` a finite Poisson sum,
+    for odd ``df`` the erfc term plus a finite sum with half-integer
+    gamma weights. Exact (up to float rounding) for every integer df —
+    the null distribution of the Kruskal-Wallis H statistic below.
+    """
+    if df < 1:
+        raise ValueError(f"df must be a positive integer, got {df}")
+    if x <= 0.0:
+        return 1.0
+    h = x / 2.0
+    if df % 2 == 0:
+        # Q(h, m) = exp(-h) * sum_{k<m} h^k / k!,  m = df/2
+        term, total = 1.0, 1.0
+        for k in range(1, df // 2):
+            term *= h / k
+            total += term
+        return float(min(1.0, math.exp(-h) * total))
+    # odd df = 2m+1: Q = erfc(sqrt(h)) + exp(-h) * sum_{k=1..m} h^(k-1/2)/G(k+1/2)
+    m = (df - 1) // 2
+    total = math.erfc(math.sqrt(h))
+    if m > 0:
+        # h^(k-1/2) / Gamma(k+1/2), built iteratively to avoid overflow
+        term = math.sqrt(h) / math.gamma(1.5)          # k = 1
+        acc = term
+        for k in range(2, m + 1):
+            term *= h / (k - 0.5)
+            acc += term
+        total += math.exp(-h) * acc
+    return float(min(1.0, total))
+
+
+def kruskal_wallis(samples) -> tuple[float, float]:
+    """Kruskal-Wallis H test across ``k`` independent samples ->
+    ``(H, p_value)``.
+
+    The k-level generalization of the Wilcoxon rank-sum test — the
+    paper-consistent (nonparametric, §5.1) omnibus test for "does this
+    experimental factor have *any* effect across its levels?". Tie-
+    corrected; the null distribution is chi-square with ``k - 1`` degrees
+    of freedom (adequate for the sweep regime, every group >= ~5).
+    """
+    groups = [np.asarray(s, dtype=np.float64) for s in samples]
+    if len(groups) < 2:
+        raise ValueError("kruskal_wallis needs at least 2 samples")
+    if any(g.size == 0 for g in groups):
+        raise ValueError("kruskal_wallis: empty sample")
+    n = np.array([g.size for g in groups])
+    total = int(n.sum())
+    ranks, tie_term = _rank_with_ties(np.concatenate(groups))
+    h = 0.0
+    pos = 0
+    for size in n:
+        r = float(np.sum(ranks[pos:pos + size]))
+        h += r * r / size
+        pos += size
+    h = 12.0 / (total * (total + 1)) * h - 3.0 * (total + 1)
+    correction = 1.0 - tie_term / (total**3 - total)
+    if correction <= 0.0:      # every observation tied: no information
+        return 0.0, 1.0
+    h /= correction
+    return float(h), chi2_sf(float(h), len(groups) - 1)
+
+
+def cliffs_delta(a: np.ndarray, b: np.ndarray) -> float:
+    """Cliff's delta effect size ``P(a > b) - P(a < b)`` in ``[-1, 1]``.
+
+    The ordinal companion to the rank tests: +1 means every ``a``
+    observation exceeds every ``b`` (sample A strictly slower when the
+    samples are run-times), 0 means complete overlap. Unlike a p-value it
+    does not grow with sample size, so it is the sound *ranking* key for
+    "which factors matter most" (|delta|), with the Wilcoxon/KW p-values
+    gating significance.
+    """
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    if a.size == 0 or b.size == 0:
+        raise ValueError("empty sample")
+    bs = np.sort(b)
+    n_less = np.searchsorted(bs, a, side="left").sum()     # b < a_i pairs
+    n_greater = (b.size - np.searchsorted(bs, a, side="right")).sum()
+    return float((int(n_less) - int(n_greater)) / (a.size * b.size))
+
+
 def significance_stars(p: float) -> str:
     """The paper's asterisk notation: *** p<=0.001, ** p<=0.01, * p<=0.05."""
     if p <= 0.001:
@@ -263,3 +454,63 @@ def significance_stars(p: float) -> str:
     if p <= 0.05:
         return "*"
     return ""
+
+
+# ---------------------------------------------------------------------------
+# Normality & independence diagnostics (§5.1, §5.3)
+# ---------------------------------------------------------------------------
+
+def jarque_bera(x: np.ndarray) -> tuple[float, float]:
+    """Jarque-Bera normality test -> ``(statistic, p_value)``.
+
+    Plays the role of the paper's KS/Shapiro-Wilk gate before a t-test
+    (§6.2): the JB statistic is asymptotically chi-square(2), whose survival
+    function is ``exp(-x/2)`` — no special functions needed.
+    """
+    x = np.asarray(x, dtype=np.float64)
+    n = x.size
+    if n < 8:
+        return 0.0, 1.0
+    m = x.mean()
+    d = x - m
+    s2 = float(np.mean(d**2))
+    if s2 <= 0:
+        return 0.0, 1.0
+    skew = float(np.mean(d**3)) / s2**1.5
+    kurt = float(np.mean(d**4)) / s2**2
+    jb = n / 6.0 * (skew**2 + 0.25 * (kurt - 3.0) ** 2)
+    return jb, float(math.exp(-jb / 2.0))
+
+
+def autocorrelation(x: np.ndarray, max_lag: int = 50) -> np.ndarray:
+    """ACF coefficients ``C_h / C_0`` for lags 0..max_lag (§5.3)."""
+    x = np.asarray(x, dtype=np.float64)
+    n = x.size
+    max_lag = min(max_lag, n - 1)
+    d = x - x.mean()
+    c0 = float(np.dot(d, d)) / n
+    if c0 <= 0:
+        return np.zeros(max_lag + 1)
+    acf = np.empty(max_lag + 1)
+    for h in range(max_lag + 1):
+        acf[h] = float(np.dot(d[: n - h], d[h:])) / n / c0
+    return acf
+
+
+def autocorr_significant_lags(x: np.ndarray, max_lag: int = 50) -> np.ndarray:
+    """Lags (>=1) whose ACF exceeds the 95% significance bound 1.96/sqrt(n).
+
+    Empty result => measurements can be treated as independent; otherwise
+    the paper suggests sub-sampling (§5.3, Fig. 18b).
+    """
+    x = np.asarray(x, dtype=np.float64)
+    acf = autocorrelation(x, max_lag)
+    bound = 1.96 / math.sqrt(max(1, x.size))
+    lags = np.arange(1, acf.size)
+    return lags[np.abs(acf[1:]) > bound]
+
+
+def coefficient_of_variation(x: np.ndarray) -> float:
+    x = np.asarray(x, dtype=np.float64)
+    m = float(np.mean(x))
+    return float(np.std(x, ddof=1) / m) if x.size > 1 and m != 0 else 0.0

@@ -4,7 +4,9 @@ from .base import (
     ClockSync,
     SyncResult,
     compute_rtt,
+    probe_offsets,
     skampi_pingpong_adjusted,
+    true_offsets,
 )
 from .hca import HCASync, learn_model_hca
 from .jk import JKSync, collect_fitpoints_batch
@@ -16,6 +18,8 @@ __all__ = [
     "SyncResult",
     "compute_rtt",
     "skampi_pingpong_adjusted",
+    "probe_offsets",
+    "true_offsets",
     "HCASync",
     "JKSync",
     "NetgaugeSync",

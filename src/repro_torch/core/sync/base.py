@@ -25,6 +25,8 @@ __all__ = [
     "ClockSync",
     "compute_rtt",
     "skampi_pingpong_adjusted",
+    "probe_offsets",
+    "true_offsets",
 ]
 
 
@@ -39,11 +41,19 @@ class SyncResult:
     n_messages: int
     params: dict = field(default_factory=dict)
 
+    def adjusted_local(self, r: int, raw_local: float) -> float:
+        return raw_local - self.initial_times[r]
+
     def global_time(self, net: SimNet, r: int, raw_local: float | None = None) -> float:
         """Estimated reference ("global") time from rank ``r``'s clock."""
         if raw_local is None:
             raw_local = net.local_time(r)
         return self.models[r].normalize(raw_local - self.initial_times[r])
+
+    def local_deadline(self, r: int, global_target: float) -> float:
+        """Raw local clock value at which rank ``r`` believes the global
+        clock reads ``global_target`` (used by the window-based scheme)."""
+        return self.models[r].denormalize(global_target) + self.initial_times[r]
 
 
 class ClockSync:
@@ -100,3 +110,46 @@ def skampi_pingpong_adjusted(
     td_min = float(np.max(srv - recv))   # lower bound on clock_p2 - clock_p1
     td_max = float(np.min(srv - send))   # upper bound
     return 0.5 * (td_min + td_max)
+
+
+# --------------------------------------------------------------------------
+# Post-sync evaluation probes (§4.5, Figs. 8-9; Appendix Alg. 20)
+# --------------------------------------------------------------------------
+
+def probe_offsets(net: SimNet, result: SyncResult, n_rounds: int = 10,
+                  root: int = 0) -> np.ndarray:
+    """The global-clock offset of every rank vs. the root measured *through
+    the network* (Alg. 20): the root exchanges ping-pongs with each rank,
+    the rank reports its estimated global time, and the probe of smallest
+    magnitude over ``n_rounds`` is kept. Returns an array of length p
+    (root slot 0)."""
+    p = net.p
+    out = np.zeros(p)
+    for r in range(p):
+        if r == root:
+            continue
+        best = np.inf
+        send, srv, recv = net.pingpong_batch(root, r, n_rounds)
+        for j in range(n_rounds):
+            g_client = result.global_time(net, r, srv[j])
+            g_root_mid = 0.5 * (
+                result.global_time(net, root, send[j])
+                + result.global_time(net, root, recv[j])
+            )
+            d = g_client - g_root_mid
+            if abs(d) < abs(best):
+                best = d
+        out[r] = best
+    return out
+
+
+def true_offsets(net: SimNet, result: SyncResult, root: int = 0) -> np.ndarray:
+    """Simulator ground truth: disagreement of the estimated global clocks
+    at one common true instant. Zero for a perfect synchronization."""
+    p = net.p
+    t_now = float(np.max(net.t))
+    g = np.array([
+        result.models[r].normalize(net.clocks[r].read(t_now) - result.initial_times[r])
+        for r in range(p)
+    ])
+    return g - g[root]

@@ -12,7 +12,9 @@ Three levels, at the reference's own bounds:
   * statistical when live — Philox/Mersenne draws against numpy draws.
 
 The fused engine is held against the per-epoch port as the reference
-holds its own (``tests/test_simjax_fused.py``).
+holds its own (``tests/test_simjax_fused.py``). Random-walk clocks are
+held against the reference's ``batch_rw`` engine the same two ways
+(exact on frozen drift paths when noise-free, statistical when live).
 """
 
 import copy
@@ -23,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import ClockParams as RefClockParams
 from repro.core import SimNet as RefNet
 from repro.core import make_op as ref_make_op
 from repro.core import make_sync as ref_make_sync
@@ -32,26 +35,28 @@ from repro_torch import simengine
 from repro_torch.campaign import TorchSimBackend
 from repro_torch.convert import (net_from_reference, op_from_reference,
                                  sync_from_reference)
-from repro_torch.core import SimNet, make_composite_op, make_op, make_sync
+from repro_torch.campaign import Campaign, CampaignSpec
+from repro_torch.core import (ClockParams, ExperimentDesign, SimNet, TestCase,
+                              make_composite_op, make_op, make_sync)
 from repro_torch.core.clocks import SimClock
 from repro_torch.simengine import (SimTorchUnavailable,
                                    run_windowed_epochs_torch,
-                                   run_windowed_torch)
+                                   run_windowed_torch, sample_durations_torch)
 
 NOISE_FREE = dict(noise_sigma=0.0, tail_prob=0.0, spike_prob=0.0,
                   rank_imbalance=0.0, epoch_bias_sigma=0.0, autocorr=0.0)
 CPU = "cpu"
 
 
-def _ref_synced(seed, p, n_fitpts=100, n_exchanges=20):
-    net = RefNet(p, seed=seed)
+def _ref_synced(seed, p, n_fitpts=100, n_exchanges=20, rw_sigma=0.0):
+    net = RefNet(p, seed=seed, clocks=RefClockParams(rw_sigma=rw_sigma))
     sync = ref_make_sync("hca", n_fitpts=n_fitpts,
                          n_exchanges=n_exchanges).synchronize(net)
     return net, sync
 
 
-def _synced(seed, p):
-    net = SimNet(p, seed=seed)
+def _synced(seed, p, rw_sigma=0.0):
+    net = SimNet(p, seed=seed, clocks=ClockParams(rw_sigma=rw_sigma))
     return net, make_sync("hca", n_fitpts=100, n_exchanges=20).synchronize(net)
 
 
@@ -150,6 +155,137 @@ def test_composite_chunking_and_ar_state():
 
 
 # ---------------------------------------------------------------------------
+# Random-walk clocks against the reference's batch_rw engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("frozen,win,p", [(True, 300e-6, 16), (False, 300e-6, 16),
+                                          (True, 12e-6, 16), (False, 12e-6, 16),
+                                          (False, 300e-6, 96)])
+def test_per_epoch_rw_exact_against_batch_rw_when_noise_free(frozen, win, p):
+    """Noise-free, the port on walking clocks computes the reference's
+    ``batch_rw`` campaign: drift paths grown by the same sequence of calls
+    (bit-equal nodes), the deadline inversion and forward reads on the
+    device, identical flags (the 12 us window sets both) and ``net.t``.
+    ``frozen`` activates the paths before the call, as the reference's
+    test does; otherwise the engine activates them itself. A second call
+    continues on the grown paths. At p = 96 the paths grow on threads."""
+    net_a, sync_a = _ref_synced(5, p=p, rw_sigma=1e-7)
+    if frozen:
+        net_a.freeze_drift_paths(win)
+    op_a = ref_make_op("allreduce", **NOISE_FREE)
+    net_b, sync_b = net_from_reference(net_a), sync_from_reference(sync_a)
+    op_b = op_from_reference(op_a)
+    for nrep in (300, 1100):
+        a = run_windowed(net_a, sync_a, op_a, 4096, nrep, win, engine="batch_rw")
+        b = run_windowed_torch(net_b, sync_b, op_b, 4096, nrep, win, device=CPU)
+        assert np.array_equal(a.errors, b.errors)
+        np.testing.assert_allclose(b.times, a.times, rtol=0, atol=1e-12)
+        for k in ("start_true", "end_true", "start_global_est",
+                  "end_global_est"):
+            np.testing.assert_allclose(getattr(b, k), getattr(a, k), rtol=0,
+                                       atol=1e-12)
+        np.testing.assert_allclose(net_b.t, net_a.t, rtol=0, atol=1e-12)
+        for ca, cb in zip(net_a.clocks, net_b.clocks):
+            assert np.array_equal(ca._path.t, cb._path.t)
+            assert np.array_equal(ca._path.x, cb._path.x)
+    if win < 100e-6:
+        assert np.count_nonzero(a.errors & 1) and np.count_nonzero(a.errors & 2)
+    else:
+        assert not a.errors.any()
+
+
+def test_drift_paths_cross_to_the_device_once(monkeypatch):
+    """The device mirror of a net's paths is kept between calls and sent
+    only the nodes appended since: once for the deadlines, and again in a
+    call only when the forward reads outran them (a 12 us window)."""
+    sent = []
+    upload = simengine._DevicePaths.upload
+
+    def counted(self):
+        before = sum(self.sent)
+        upload(self)
+        sent.append(sum(self.sent) - before)
+
+    monkeypatch.setattr(simengine._DevicePaths, "upload", counted)
+    net, sync = _synced(5, p=8, rw_sigma=1e-7)
+    op = make_op("allreduce", **NOISE_FREE)
+    run_windowed_torch(net, sync, op, 4096, 300, 12e-6, device=CPU)
+    mirror = simengine._MIRRORS[net]
+    run_windowed_torch(net, sync, op, 4096, 1100, 12e-6, device=CPU)
+    assert simengine._MIRRORS[net] is mirror
+    assert len(sent) >= 3 and all(n > 0 for n in sent)
+    assert sum(sent) == sum(c._path.t.size for c in net.clocks)
+    assert mirror.sent == [c._path.t.size for c in net.clocks]
+
+
+def test_per_epoch_rw_matches_batch_rw_statistically():
+    """Live noise on walking clocks: the port's device draws against the
+    reference's numpy draws, Wilcoxon-indistinguishable, means within 2%.
+
+    Both measure the same launch epoch: the epoch bias (a per-epoch
+    constant, ±2%) is drawn first in both, from the same stream position;
+    left to the engines, the port would draw its window seed before it
+    and so a different epoch's bias."""
+    net_a, sync_a = _ref_synced(7, p=8, rw_sigma=1e-7)
+    net_b, sync_b = _synced(7, p=8, rw_sigma=1e-7)
+    op_a, op_b = ref_make_op("allreduce"), make_op("allreduce")
+    assert op_a._bias_for(net_a) == op_b._bias_for(net_b)
+    a = run_windowed(net_a, sync_a, op_a, 4096, 2500, 300e-6,
+                     engine="batch_rw")
+    b = run_windowed_torch(net_b, sync_b, op_b, 4096, 2500, 300e-6,
+                           device=CPU)
+    res = wilcoxon_rank_sum(a.valid_times, b.valid_times)
+    assert res.p_value > 0.05, res.p_value
+    assert abs(a.valid_times.mean() - b.valid_times.mean()) \
+        < 0.02 * a.valid_times.mean()
+
+
+def test_walking_clock_campaign_measures_per_epoch():
+    """``TorchSimBackend`` on walking clocks: the fused capability steps
+    aside, ``Campaign`` measures each epoch through the per-epoch engine,
+    and every record says so."""
+    backend = TorchSimBackend(p=4, device=CPU, clock_kw=dict(rw_sigma=1e-7),
+                              sync_kw=dict(n_fitpts=20, n_exchanges=5))
+    design = ExperimentDesign(n_launch_epochs=3, nrep=30, seed=2)
+    cases = [TestCase("allreduce", 512), TestCase("bcast", 4096)]
+    assert backend.measure_epochs({0: cases}, design) is None
+    res = Campaign(CampaignSpec(cases, design), backend).run()
+    assert len(res.records) == 6
+    for r in res.records:
+        assert r.meta["engine"] == "torch" and r.meta["device"] == "cpu"
+        assert r.meta["fused"] is False
+        assert r.times.size and np.isfinite(r.times).all() and (r.times > 0).all()
+    epoch = backend.make_epoch(0)
+    assert epoch.net.clocks[0].rw_sigma == 1e-7
+
+
+def test_sample_durations_draws_in_the_engine_order():
+    """``sample_durations_torch``: the window seed, then each term's bias,
+    from ``net.rng``; each term through ``_sample`` with its AR(1) carry;
+    the imbalance from the (seed, number of terms) generator."""
+    net_a, _ = _synced(4, p=6)
+    net_b = copy.deepcopy(net_a)
+    op_a = make_composite_op("allreduce + bcast*0.5")
+    op_b = copy.deepcopy(op_a)
+    dur, fac = sample_durations_torch(net_a, op_a, 4096, 700, device=CPU)
+    assert dur.shape == (700,) and fac.shape == (700, 6)
+    n = simengine._bucket(700)
+    seed = int(net_b.rng.integers(2**31))
+    terms = simengine._terms(op_b, 6, 4096)
+    want = sum(simengine._sample([seed], j, [sub], [net_b], tp, tm, n, 700, CPU)[0]
+               for j, (sub, tp, tm) in enumerate(terms))
+    fac_want = simengine._imbalance(simengine._generator(CPU, seed, len(terms)),
+                                    n, 6, op_b.rank_imbalance, CPU)
+    assert torch.equal(dur, want[:700]) and torch.equal(fac, fac_want[:700])
+    assert net_a.rng.bit_generator.state == net_b.rng.bit_generator.state
+    assert [t._ar_state for t, _, _ in op_a.terms] == \
+        [t._ar_state for t, _, _ in op_b.terms]
+    assert (fac >= 0.25).all() and fac.std() > 0
+    empty_d, empty_f = sample_durations_torch(net_a, op_a, 4096, 0, device=CPU)
+    assert empty_d.shape == (0,) and empty_f.shape == (0, 6)
+
+
+# ---------------------------------------------------------------------------
 # Fused engine against the per-epoch port
 # ---------------------------------------------------------------------------
 
@@ -226,19 +362,18 @@ def test_chunk_and_bucket_rules():
 # ---------------------------------------------------------------------------
 
 def test_random_walk_clocks_raise():
+    """The fused engine's window rests on affine clocks: it refuses a
+    walking clock (and measures nothing), while the clock itself, the
+    per-epoch engine and the backend accept it."""
     net, sync = _synced(3, p=4)
     net.clocks[0].rw_sigma = 1e-7
-    with pytest.raises(SimTorchUnavailable):
-        run_windowed_torch(net, sync, make_op("bcast"), 256, 10, 400e-6,
-                           device=CPU)
+    state = net.t.copy()
     with pytest.raises(SimTorchUnavailable):
         run_windowed_epochs_torch([net], [sync], [make_op("bcast")], 256, 10,
                                   400e-6, device=CPU)
-    backend = TorchSimBackend(p=4, device=CPU, clock_kw=dict(rw_sigma=1e-7))
-    with pytest.raises(SimTorchUnavailable):
-        backend.make_epoch(0)
-    with pytest.raises(ValueError, match="random-walk"):
-        SimClock(rw_sigma=1e-7)
+    assert np.array_equal(net.t, state)
+    clk = SimClock(rw_sigma=1e-7)
+    assert clk.rw_sigma == 1e-7 and clk.read(1.0) != 1.0
 
 
 def test_cuda_without_a_gpu_raises(monkeypatch):
