@@ -23,6 +23,13 @@ is :func:`~repro_torch.core.run_barrier_timed`: the barrier loop on the
 host, the operation's durations drawn on the device through ``sim_scan``.
 Random-walk clocks (``ClockParams(rw_sigma=...)``) run on both paths.
 
+Over the simulated campaign sit the paper's products, each a copy of the
+reference's layer: factor sweeps (:class:`~repro_torch.campaign.SweepScheduler`,
+:mod:`repro_torch.sweeps`, with racing allocation), the cross-run drift
+audit (:mod:`repro_torch.history`) and the sim calibration fit
+(:mod:`repro_torch.calibrate`); every cell, audited run and calibration
+candidate samples through ``sim_scan``.
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 each kernel's plain PyTorch version runs instead.
 """

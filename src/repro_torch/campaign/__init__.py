@@ -11,11 +11,14 @@ persistent result store, and the resumable campaign orchestrator. ::
 
 :class:`TorchKernelBackend` runs the same method against the hand-written
 kernels and their plain versions (the kernel A/B path).
+:class:`SweepScheduler` compiles a factor grid into one campaign per cell
+(:mod:`repro_torch.sweeps` reads which factors matter).
 """
 
 from .backends import MeasurementBackend, TorchKernelBackend, TorchSimBackend
 from .core import Campaign, CampaignResult, CampaignSpec
 from .store import SCHEMA_VERSION, ResultStore, StoreSnapshot
+from .sweep import CellResult, SweepResult, SweepScheduler, SweepSpec
 
 __all__ = [
     "MeasurementBackend",
@@ -27,4 +30,8 @@ __all__ = [
     "ResultStore",
     "StoreSnapshot",
     "SCHEMA_VERSION",
+    "SweepSpec",
+    "SweepScheduler",
+    "SweepResult",
+    "CellResult",
 ]

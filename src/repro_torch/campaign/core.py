@@ -10,7 +10,10 @@ averages (Alg. 6) — and returns a :class:`CampaignResult`. With a
 cell is appended the moment it exists, and re-running the identical spec
 *resumes*: cells already in the store are loaded instead of re-measured.
 Case orders are drawn up front from the design seed, so a campaign resumed
-at an epoch boundary yields records identical to an uninterrupted one.
+at an epoch boundary yields records identical to an uninterrupted one, and
+a run restricted to a window of launch epochs (``epochs=``, what a
+budgeted sweep and a calibration fit run under) appends exactly the
+records those epochs get in a full run.
 """
 
 from __future__ import annotations
@@ -78,14 +81,40 @@ class Campaign:
         self.backend = backend
         self.store = store
 
-    def run(self, snapshot: StoreSnapshot | None = None) -> CampaignResult:
+    def run(self, snapshot: StoreSnapshot | None = None,
+            on_record=None, epochs=None) -> CampaignResult:
         """Execute (or resume) the campaign. ``snapshot`` — a
         :meth:`~repro_torch.campaign.ResultStore.snapshot` of the attached
-        store — replaces the per-run full-file resume scan."""
+        store — replaces the per-run full-file resume scan; a sweep runs
+        many campaigns against one growing file and passes the one
+        snapshot it took up front. ``on_record(record)`` fires after every
+        *freshly measured* cell is (if a store is attached) appended.
+
+        ``epochs`` — an iterable of launch-epoch indices — restricts the
+        run to a *window* of the design's epochs. The window must stay
+        inside ``design.n_launch_epochs``: the epoch count is part of the
+        factor fingerprint. Case orders for *all* epochs are still drawn
+        up front from the design seed, and a backend's fused
+        ``measure_epochs`` receives only the window's work, so measuring
+        epochs ``[0, 1)`` now and ``[1, 3)`` later appends exactly the
+        records an uninterrupted full run would have."""
         spec, backend, store = self.spec, self.backend, self.store
         design = spec.design
         cases = list(spec.cases) or backend.default_cases()
         factors = backend.factors(design)
+
+        if epochs is None:
+            epoch_window = None
+        else:
+            epoch_window = sorted({int(e) for e in epochs})
+            bad = [e for e in epoch_window
+                   if not 0 <= e < design.n_launch_epochs]
+            if bad:
+                raise ValueError(
+                    f"Campaign: epochs {bad} outside the design's "
+                    f"0..{design.n_launch_epochs - 1} range — the epoch "
+                    "count is fingerprinted, so a wider window needs a "
+                    "new design, not a bigger window")
 
         fingerprint = None
         done: dict[tuple[str, int, int], MeasurementRecord] = {}
@@ -101,15 +130,17 @@ class Campaign:
         orders = list(enumerate(case_orders(design, cases)))
         stats0 = engine_stats()
 
-        # Fused execution: a backend advertising `measure_epochs` gets all
-        # pending work in one call and may batch epochs into shared device
-        # launches. `None` (capability gated off for this configuration)
-        # falls back to per-epoch measurement below.
+        # Fused execution: a backend advertising `measure_epochs` gets the
+        # window's pending work in one call and may batch epochs into shared
+        # device launches. `None` (capability gated off for this
+        # configuration) means per-epoch measurement below.
         fused: dict = {}
         measure_epochs = getattr(backend, "measure_epochs", None)
         if measure_epochs is not None:
             work = {}
             for epoch, order in orders:
+                if epoch_window is not None and epoch not in epoch_window:
+                    continue
                 pending = [c for c in order
                            if (c.op, c.msize, epoch) not in done]
                 if pending:
@@ -118,6 +149,8 @@ class Campaign:
                 fused = measure_epochs(work, design) or {}
 
         for epoch, order in orders:
+            if epoch_window is not None and epoch not in epoch_window:
+                continue
             missing = [c for c in order
                        if (c.op, c.msize, epoch) not in done
                        and (c.op, c.msize, epoch) not in fused]
@@ -149,6 +182,8 @@ class Campaign:
                                         meta=meta)
                 if store is not None:
                     store.append_record(fingerprint, rec)
+                if on_record is not None:
+                    on_record(rec)
                 records.append(rec)
                 n_measured += 1
 

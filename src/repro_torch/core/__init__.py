@@ -29,7 +29,8 @@ from .design import (
     measure_case,
     run_design,
 )
-from .factors import FactorSet, capture_torch_factors
+from .factors import (FactorAxis, FactorGrid, FactorSet, GridCell,
+                      assert_comparable, capture_torch_factors)
 from .mpi_ops import SimCollective, SimCompositeOp, make_composite_op, make_op
 from .opexpr import OpTerm, is_composite, parse_opexpr
 from .retry import RetryBudgetExceeded, RetryPolicy, retry_call
@@ -71,6 +72,7 @@ __all__ = [
     "ExperimentDesign", "TestCase", "MeasurementRecord", "EpochSummary",
     "ResultTable", "analyze_records", "case_orders", "measure_case",
     "measure_adaptive", "NREP_SPENT", "run_design", "map_parallel",
-    "FactorSet", "capture_torch_factors",
+    "FactorSet", "capture_torch_factors", "assert_comparable",
+    "FactorAxis", "FactorGrid", "GridCell",
     "RetryPolicy", "RetryBudgetExceeded", "retry_call",
 ]

@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor the JAX package ``repro``, checked statically over the
 sources and at run time in a subprocess where both are blocked (a
-simulated campaign and a kernel guideline campaign on the CPU)."""
+simulated campaign, a kernel guideline campaign, a two-cell factor sweep
+and a drift audit, on the CPU)."""
 
 import ast
 import os
@@ -64,9 +65,21 @@ family = [dataclasses.replace(g, msizes=(32,)) for g in KERNEL_GUIDELINES]
 report = verify_guidelines(family, TorchKernelBackend(device="cpu", heads=2, head_dim=16),
                            design=ExperimentDesign(n_launch_epochs=2, nrep=3, seed=1))
 assert len(report.verdicts) == 2 and report.n_measured == 8
+
+from repro_torch.campaign import SweepScheduler
+from repro_torch.history import audit_tables
+from repro_torch.sweeps import default_sim_sweep
+
+sweep_spec, sweep_backend = default_sim_sweep(seed=1, axes=("tuning",), msizes=(512,),
+                                              n_launch_epochs=2, nrep=10, p=4,
+                                              device="cpu")
+sweep = SweepScheduler(sweep_spec, sweep_backend).run()
+assert len(sweep.cells) == 2
+audit = audit_tables(sweep.cells[0].table, sweep.cells[1].table)
+assert len(audit.cells) == 1
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not loaded, loaded
-print("ok", len(res.records), report.n_measured)
+print("ok", len(res.records), report.n_measured, len(sweep.cells), len(audit.cells))
 """
 
 
@@ -75,4 +88,4 @@ def test_port_runs_with_jax_and_reference_blocked():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip() == "ok 4 8"
+    assert proc.stdout.strip() == "ok 4 8 2 1"
