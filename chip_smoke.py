@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build the kernels from
 this checkout, hold each against its plain PyTorch version on the card,
 drive the paths (the simulated measurement campaign, the kernel A/B
-campaign, on random-walk clocks campaigns and the barrier scheme, and the
-factor sweeps, drift audit and calibration over the campaign) at sizes
+campaign, on random-walk clocks campaigns and the barrier scheme, the
+factor sweeps, drift audit and calibration over the campaign, the
+performance-guideline family and the fault-tolerant sweep fleet) at sizes
 users run, and check what comes out.
 
     python3 chip_smoke.py          # from the repository root, one GPU
@@ -24,7 +25,9 @@ Phases, each of which raises (exit code 1) on failure:
      its times at the main path's two shapes (the fused R = 30 call and an
      R = 1 top-up, n = 1e5) beside its memory bound;
   4. both engines on the card against the port on the CPU, noise-free
-     from the same state (a device-only fault shows here);
+     from the same state (a device-only fault shows here), and the fused
+     engine against the per-epoch one on the card under live noise, bit
+     for bit;
   5. the archived reference audit campaign
      (``benchmarks/reference_archive/run-000.jsonl``) on the card: each
      cell's median of per-epoch medians within ±10% of the archive's, and
@@ -85,10 +88,27 @@ Phases, each of which raises (exit code 1) on failure:
      (``benchmarks/reference_calibration.json``): ``op.alpha`` within 10%
      of its 6.25e-06, no held-out cell DRIFTED, and a replay from the
      store that measures nothing;
- 16. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
+ 16. the PGMPI guideline family (``SIM_GUIDELINES``) at p = 512, nrep
+     1e4, 8 epochs: the honest library (10 cells, none VIOLATED), then an
+     inflated alltoall (only the mock-up bound VIOLATED) and an inflated
+     allgather (pattern containment above 1, not significant at this
+     width), each cell's verdict the reference's at p = 512; walls,
+     ratios, Holm p, invalid fractions and ``sim_scan`` launches;
+ 17. the fault-tolerant fleet: the serial tuning x dtype sweep at p = 512,
+     nrep 1e4 (4 cells, fused); the same sweep on three workers forked
+     from a fork server under the CI chaos spec (every record's exact
+     times equal the serial run's, none quarantined, the shards
+     compacted, no launch in this process), which sets the lease for the
+     rest of the phase from the measured start-up and heartbeat gaps; the
+     CI quarantine spec at p = 8 on two workers (cells 0 and 2
+     quarantined, the survivors equal serial, a fault-free resume
+     measures exactly those two); a straggler on every first attempt
+     (the run ends long before the stall); the in-process fleet under
+     soft crashes (equal to serial);
+ 18. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
      once per type; ``sim_scan``'s entry counts its launches on the main
-     path, on the two paths of phases 11 and 12 and on the three of
-     phases 13-15.
+     path, on the two paths of phases 11 and 12, on the three of phases
+     13-15 and on phases 16 and 17 (this process only).
 
 Every timed kernel in phases 3, 7 and 8 has ``nvidia-smi``'s SM clock
 (now and max), power draw and temperature, sampled right before and after
@@ -375,15 +395,15 @@ def phase_engines(torch):
     from repro_torch.core import SimNet, make_op, make_sync
     from repro_torch.simengine import run_windowed_epochs_torch, run_windowed_torch
 
-    def epochs(E, p):
+    def epochs(E, p, **op_kw):
         out = []
         for e in range(E):
             net = SimNet(p, seed=5 + 1000 * e)
             sync = make_sync("hca", n_fitpts=100, n_exchanges=20).synchronize(net)
-            out.append((net, sync, make_op("allreduce", **NOISE_FREE)))
+            out.append((net, sync, make_op("allreduce", **op_kw)))
         return out
 
-    cpu = epochs(1, 16)
+    cpu = epochs(1, 16, **NOISE_FREE)
     gpu = copy.deepcopy(cpu)
     a = run_windowed_torch(*cpu[0], 4096, 2000, 300e-6, device="cpu")
     b = run_windowed_torch(*gpu[0], 4096, 2000, 300e-6, device="cuda")
@@ -394,7 +414,7 @@ def phase_engines(torch):
         require(err <= 1e-12, f"per-epoch {k} cuda vs cpu |err| {err:.3e} <= 1e-12")
     require(np.abs(cpu[0][0].t - gpu[0][0].t).max() <= 1e-12, "per-epoch net.t")
 
-    cpu = epochs(3, 16)
+    cpu = epochs(3, 16, **NOISE_FREE)
     gpu = copy.deepcopy(cpu)
     ref = [run_windowed_torch(*c, 4096, 5000, 300e-6, device="cpu") for c in cpu]
     fused = run_windowed_epochs_torch(*map(list, zip(*gpu)), 4096, 5000,
@@ -403,9 +423,22 @@ def phase_engines(torch):
         require(np.array_equal(r.errors, f.errors), "fused error flags cuda == cpu")
         require(np.allclose(f.times, r.times, rtol=1e-5, atol=0),
                 "fused times on cuda vs per-epoch on cpu within rtol 1e-5")
+    # live noise: on the card, the fused engine is the per-epoch engine bit
+    # for bit (lanes drawn bit-identically, the same float64 window), which
+    # the fleet's "faulted attempts (per epoch) == serial (fused)" rests on
+    live = epochs(4, 64)
+    fused_live = copy.deepcopy(live)
+    per_epoch = [run_windowed_torch(*c, 4096, 20_000, 400e-6, device="cuda") for c in live]
+    fused = run_windowed_epochs_torch(*map(list, zip(*fused_live)), 4096, 20_000,
+                                      400e-6, device="cuda")
+    for (net_u, _, op_u), (net_f, _, op_f), u, f in zip(live, fused_live, per_epoch, fused):
+        require(np.array_equal(u.times, f.times) and np.array_equal(u.errors, f.errors)
+                and np.array_equal(net_u.t, net_f.t) and op_u._ar_state == op_f._ar_state,
+                "live noise: fused == per-epoch on the card, bit for bit")
     print("# [4 engines] noise-free: per-epoch cuda == cpu at atol 1e-12 "
           "(p=16, nrep 2000); fused cuda == per-epoch cpu at rtol 1e-5 "
-          "(3 epochs, nrep 5000), identical error flags")
+          "(3 epochs, nrep 5000), identical error flags; live noise: fused == "
+          "per-epoch on the card bit for bit (4 epochs, p=64, nrep 20 000)")
 
 
 def phase_gate(torch):
@@ -484,7 +517,7 @@ def phase_main_path(torch) -> int:
     # (module, attribute, wrapper): device spans inside the engine, host
     # time of each step the backend calls
     patches = [(simengine, name, spans.wrap(name, getattr(simengine, name)))
-               for name in ("_sample", "_window_fused", "_window")]
+               for name in ("_sample", "_window")]
     patches.append((simengine, "sim_durations_scan", kernel_by_shape))
     patches += [(backends, name, host_timed(name, getattr(backends, name)))
                 for name in ("run_windowed_epochs_torch", "run_windowed_torch")]
@@ -511,7 +544,7 @@ def phase_main_path(torch) -> int:
     sample_ms = spans.ms("_sample")
     rows_ms = {R: spans.ms(f"sim_scan R={R}") for R in sorted(by_rows)}
     kernel_ms = sum(rows_ms.values())
-    window_ms = spans.ms("_window_fused") + spans.ms("_window")
+    window_ms = spans.ms("_window")
     sync_s = host.get("make_epoch", [])
     fused_s = host.get("run_windowed_epochs_torch", [])
     topup_s = host.get("run_windowed_torch", [])
@@ -1608,6 +1641,276 @@ def phase_calibrate(torch, device="cuda") -> int:
     return launches
 
 
+GUIDELINE_MOCK = dict(name="alltoall_mock_bound", lhs="alltoall",
+                      rhs="allreduce*2+bcast*2",
+                      description="mock-up bound: alltoall ⪯ allreduce(2m)+bcast(2m)")
+
+# The verdicts the reference gives at p = 512 on the same specs (its
+# SimBackend on the CPU, nrep 1e4, 8 epochs, stock sync: `python
+# tests/test_torch_sim_guidelines.py --p 512 --nrep 10000` prints both
+# packages'). At this width the epochs' spread swamps most margins: no
+# honest cell is VIOLATED but none holds with a significant margin
+# (holds(~)), where all ten hold(<) at p = 8; the inflated alltoall still
+# breaks exactly the mock-up bound, and the inflated allgather leaves
+# pattern containment at a ratio of ~1.38 but not significantly (Holm p
+# ~0.2 over 8 epochs), so nothing is VIOLATED there.
+GUIDELINE_VERDICTS_P512 = {
+    "honest": ["holds(~)"] * 10,
+    "alltoall": ["holds(<)", "holds(<)", "holds(~)", "holds(~)", "holds(~)", "VIOLATED"],
+    "allgather": ["holds(~)", "holds(<)", "holds(~)", "holds(~)", "holds(~)"],
+}
+
+
+def phase_guidelines(torch, device="cuda", p=512, nrep=10_000) -> int:
+    """The PGMPI guideline family on the simulated campaign at p = 512: the
+    honest library, then the two seeded mis-tunings of the reference's
+    tests; returns sim_scan's launches."""
+    import numpy as np
+
+    from repro_torch.campaign import TorchSimBackend, backends
+    from repro_torch.core import ExperimentDesign
+    from repro_torch.guidelines import SIM_GUIDELINES, Guideline, verify_guidelines
+    from repro_torch.kernels.sim_scan import sim_durations_scan
+
+    design = ExperimentDesign(n_launch_epochs=8, nrep=nrep)
+    specs = [("honest", SIM_GUIDELINES, (1024, 8192), {}),
+             ("alltoall", (*SIM_GUIDELINES, Guideline(**GUIDELINE_MOCK)), (1024,),
+              {"alltoall": dict(alpha=12e-6, gamma=10e-6)}),
+             ("allgather", SIM_GUIDELINES, (1024,),
+              {"allgather": dict(alpha=9e-6, gamma=8e-6)})]
+    flags: list = []
+
+    def flagged(fn, fused):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            flags.extend(np.asarray(r.errors) for r in (out if fused else [out]))
+            return out
+        return call
+
+    patches = [(backends, "run_windowed_epochs_torch",
+                flagged(backends.run_windowed_epochs_torch, True)),
+               (backends, "run_windowed_torch", flagged(backends.run_windowed_torch, False))]
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    sim_durations_scan.launches = 0
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    reports = {}
+    try:
+        for name, family, msizes, per_op_kw in specs:
+            flags.clear()
+            l0 = sim_durations_scan.launches
+            t = time.perf_counter()
+            report = verify_guidelines(family, TorchSimBackend(p=p, device=device,
+                                                               per_op_kw=per_op_kw),
+                                       design=design, msizes=msizes)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            reports[name] = report
+            allflags = np.concatenate(flags)
+            print(f"# [16 guidelines] {name} (per_op_kw {per_op_kw}) p={p} nrep={nrep} "
+                  f"8 epochs, msizes {list(msizes)} on {device}: wall {wall:.2f} s, "
+                  f"{report.n_measured} records, invalid fraction "
+                  f"{np.count_nonzero(allflags) / allflags.size:.4f} ({allflags.size} "
+                  f"windows), sim_scan launches {sim_durations_scan.launches - l0}; cells: "
+                  + "; ".join(f"{v.guideline.name}@{v.msize} {v.verdict} ratio "
+                              f"{v.ratio:.4f} Holm p {v.p_holm:.3g} p(<) "
+                              f"{v.p_confirmed:.3g}" for v in report.verdicts))
+    finally:
+        for obj, name, fn in originals:
+            setattr(obj, name, fn)
+    launches = sim_durations_scan.launches
+    if device == "cuda":
+        require(launches > 0, "guideline campaigns launched sim_scan")
+    honest = reports["honest"]
+    require(len(honest.verdicts) == 10 and honest.ok, "honest library: 10 cells, none VIOLATED")
+    for name, report in reports.items():
+        got = [v.verdict for v in report.verdicts]
+        want = GUIDELINE_VERDICTS_P512[name]
+        require(got == want, f"guidelines {name}: verdicts {got}, the reference's at p = "
+                             f"{p}: {want}")
+    require([v.guideline.name for v in reports["alltoall"].violations()]
+            == ["alltoall_mock_bound"], "inflated alltoall: only alltoall_mock_bound VIOLATED")
+    require(not reports["allgather"].violations()
+            and reports["allgather"].verdicts[0].ratio > 1.0,
+            "inflated allgather: allgather_pat_alltoall above 1 but, as in the "
+            "reference at p = 512, not VIOLATED")
+    return launches
+
+
+def store_dump(store) -> dict:
+    """Every record of every campaign in a store, exact times included."""
+    import numpy as np
+
+    return {fp: sorted((r.case.op, r.case.msize, r.epoch,
+                        tuple(np.asarray(r.times, np.float64).tolist()))
+                       for r in store.records(fp))
+            for fp in store.fingerprints()}
+
+
+def phase_fleet(torch, device="cuda", p=512, nrep=10_000) -> int:
+    """The fault-tolerant fleet: the serial sweep at p = 512, the same sweep
+    on three workers under the CI chaos spec, the CI quarantine spec at
+    p = 8 with its fault-free resume, a straggler, and the in-process
+    fleet under soft crashes; returns sim_scan's launches in this
+    process."""
+    from repro_torch.fleet.scheduler import stop_worker_server
+
+    try:
+        return _fleet_runs(torch, device, p, nrep)
+    finally:
+        stop_worker_server()        # the fork server the workers forked from
+
+
+def _fleet_runs(torch, device, p, nrep) -> int:
+    import tempfile
+    import warnings
+
+    from repro_torch.campaign import ResultStore, SweepScheduler
+    from repro_torch.fleet import FaultPlan, FleetConfig, FleetScheduler
+    from repro_torch.kernels.sim_scan import sim_durations_scan
+    from repro_torch.sweeps import default_sim_sweep
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    on_card = device == "cuda"
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def line(tag, res, wall, launches):
+        f = res.fleet
+        attempts = f["n_done"] + f["n_failed_attempts"]
+        hb = ("" if f["first_heartbeat_s"] is None else
+              f", longest start to first heartbeat {f['first_heartbeat_s']:.3f} s, "
+              f"longest heartbeat gap "
+              + ("none" if f["heartbeat_gap_s"] is None else f"{f['heartbeat_gap_s']:.3f} s")
+              + f" ({f['n_heartbeats']} heartbeats), fork server ready in "
+              + f"{f['server_start_s']:.2f} s")
+        print(f"# [17 fleet] {tag}: wall {wall:.2f} s, {f['start_method']}, "
+              f"{f['n_workers']} workers, ttl {f['lease_ttl']:.2f} s, {attempts} attempts, "
+              f"{f['n_failed_attempts']} failed, {f['n_quarantined']} quarantined, "
+              f"{f['n_corrupt_shard_lines']} corrupt shard lines{hb}; sim_scan launches "
+              f"in this process {launches}")
+
+    spec, backend = default_sim_sweep(seed=0, axes=("tuning", "dtype"), msizes=(4096,),
+                                      n_launch_epochs=2, nrep=nrep, p=p, device=device)
+    # (a) serial
+    sim_durations_scan.launches = 0
+    serial, wall = timed(lambda: SweepScheduler(spec, backend,
+                                                ResultStore(tmp / "serial.jsonl")).run())
+    launches = sim_durations_scan.launches
+    ref = store_dump(ResultStore(tmp / "serial.jsonl"))
+    require(len(serial.cells) == serial.n_cells_measured == 4, "serial: 4 cells measured")
+    if on_card:
+        require(launches > 0, "serial sweep launched sim_scan")
+    print(f"# [17 fleet] (a) serial p={p} nrep={nrep} 2 epochs allreduce@4096, tuning x "
+          f"dtype, 4 cells (fused): wall {wall:.2f} s; sim_scan launches {launches}")
+
+    # (b) three workers under the CI chaos spec, at the reference's default ttl
+    store = ResultStore(tmp / "chaos.jsonl")
+    cfg = FleetConfig(n_workers=3, faults=FaultPlan.parse("crash=0.5,raise=0.3,seed=7"))
+    l0 = sim_durations_scan.launches
+    chaos, wall = timed(lambda: FleetScheduler(spec, backend, store, cfg).run())
+    in_parent = sim_durations_scan.launches - l0
+    line("(b) chaos crash=0.5,raise=0.3,seed=7", chaos, wall, in_parent)
+    require(not chaos.quarantined and chaos.n_cells_measured == 4,
+            "chaos: 4 cells measured, none quarantined")
+    require(chaos.fleet["n_failed_attempts"] >= 1, "chaos: faults struck")
+    require(chaos.fleet["start_method"] == "forkserver", "chaos: workers from the fork server")
+    if on_card:
+        require(in_parent == 0, "chaos: no sim_scan launch in this process (no serial fallback)")
+    require(store_dump(store) == ref, "chaos fleet (per epoch, in workers) == serial (fused), "
+                                      "every record's exact times")
+    require(not (tmp / "chaos-shards").exists(), "chaos: shard directory compacted away")
+    # the lease for the rest of the phase: three times the longest start-up or
+    # heartbeat gap measured under chaos, at least 1 s
+    observed = max(chaos.fleet["first_heartbeat_s"] or 0.0,
+                   chaos.fleet["heartbeat_gap_s"] or 0.0)
+    ttl = max(1.0, 3.0 * observed)
+    print(f"# [17 fleet] lease ttl chosen {ttl:.2f} s = 3 x the longest start-up or "
+          f"heartbeat gap under chaos ({observed:.3f} s), at least 1 s")
+
+    # (c) the CI quarantine spec at the stock p = 8 on two workers, then resume
+    spec8, backend8 = default_sim_sweep(seed=0, axes=("tuning", "dtype"), device=device)
+    l0 = sim_durations_scan.launches
+    serial8, wall8 = timed(lambda: SweepScheduler(spec8, backend8,
+                                                  ResultStore(tmp / "serial8.jsonl")).run())
+    launches += sim_durations_scan.launches - l0
+    ref8 = store_dump(ResultStore(tmp / "serial8.jsonl"))
+    fps = {c.cell.index: c.fingerprint for c in serial8.cells}
+    store = ResultStore(tmp / "quarantine.jsonl")
+    plan = FaultPlan.parse("crash=0.5,within_calls=1,max_faulty_attempts=99,seed=26")
+    l0 = sim_durations_scan.launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        quar, wall = timed(lambda: FleetScheduler(
+            spec8, backend8, store, FleetConfig(n_workers=2, lease_ttl=ttl,
+                                                faults=plan)).run())
+    in_parent = sim_durations_scan.launches - l0
+    line("(c) quarantine crash=0.5,within_calls=1,max_faulty_attempts=99,seed=26 at p=8 "
+         f"(serial reference {wall8:.2f} s)", quar, wall, in_parent)
+    require(set(quar.quarantined) == {0, 2}, f"quarantine: cells 0 and 2 (got "
+                                             f"{sorted(quar.quarantined)})")
+    for idx, info in quar.quarantined.items():
+        require(info["fingerprint"] == fps[idx] and info["attempts"] == 3,
+                f"quarantined cell {idx}: its fingerprint, 3 attempts")
+    require(sum("quarantining sweep cell" in str(w.message) for w in caught) == 2,
+            "quarantine: both cells reported")
+    got = store_dump(store)
+    require(all(fps[i] not in got for i in (0, 2))
+            and all(got[fps[i]] == ref8[fps[i]] for i in (1, 3)),
+            "quarantine: no partial records; the survivors' records == serial")
+    if on_card:
+        require(in_parent == 0, "quarantine: no sim_scan launch in this process")
+    l0 = sim_durations_scan.launches
+    resumed, wall = timed(lambda: FleetScheduler(
+        spec8, backend8, store, FleetConfig(n_workers=2, lease_ttl=ttl)).run())
+    in_parent = sim_durations_scan.launches - l0
+    line("(c) fault-free resume", resumed, wall, in_parent)
+    if on_card:
+        require(in_parent == 0, "resume: no sim_scan launch in this process")
+    require(resumed.n_cells_measured == 2 and resumed.n_cells_resumed == 2
+            and not resumed.quarantined, "resume: measures exactly the 2 quarantined cells")
+    require(store_dump(store) == ref8, "resume: the store == serial")
+
+    # (d) a straggler on every first attempt, stalled far past the lease
+    stall = 20.0 * ttl
+    store = ResultStore(tmp / "straggle.jsonl")
+    plan = FaultPlan.parse(f"straggle=1.0,straggle_s={stall},seed=3,within_calls=2")
+    l0 = sim_durations_scan.launches
+    straggle, wall = timed(lambda: FleetScheduler(
+        spec, backend, store, FleetConfig(n_workers=3, lease_ttl=ttl, faults=plan)).run())
+    in_parent = sim_durations_scan.launches - l0
+    line(f"(d) straggler straggle=1.0,straggle_s={stall:.1f}", straggle, wall, in_parent)
+    if on_card:
+        require(in_parent == 0, "straggler: no sim_scan launch in this process")
+    require(straggle.fleet["n_failed_attempts"] >= 1 and not straggle.quarantined,
+            "straggler: leases expired, nothing quarantined")
+    require(wall < stall / 2, f"straggler: the run ({wall:.1f} s) ended long before the "
+                              f"stall ({stall:.1f} s)")
+    require(store_dump(store) == ref, "straggler: the store == serial")
+
+    # (e) in-process under soft crashes: the kernel runs in this process
+    store = ResultStore(tmp / "inprocess.jsonl")
+    plan = FaultPlan.parse("crash=1.0,within_calls=1,seed=0")
+    l0 = sim_durations_scan.launches
+    inproc, wall = timed(lambda: FleetScheduler(
+        spec, backend, store, FleetConfig(n_workers=1, faults=plan)).run())
+    in_parent = sim_durations_scan.launches - l0
+    launches += in_parent
+    line("(e) in-process, soft crashes crash=1.0,within_calls=1", inproc, wall, in_parent)
+    require(inproc.fleet["n_failed_attempts"] == 4 and not inproc.quarantined,
+            "in-process: one soft crash per cell, none quarantined")
+    if on_card:
+        require(in_parent > 0, "in-process: sim_scan launched in this process")
+    require(store_dump(store) == ref, "in-process fleet (per epoch) == serial (fused)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1643,6 +1946,11 @@ def main() -> int:
     kernel["launches_audit"] = phase_audit(torch)
     kernel["launches_calibrate"] = phase_calibrate(torch)
     print(f"# [13-15] {time.perf_counter() - t:.2f} s")
+    # the guideline family on the simulated campaign, and the fleet
+    t = time.perf_counter()
+    kernel["launches_guidelines"] = phase_guidelines(torch)
+    kernel["launches_fleet"] = phase_fleet(torch)
+    print(f"# [16-17] {time.perf_counter() - t:.2f} s")
     print(json.dumps({"kernels": [kernel, flash, flash_bf16, ssd, ssd_bf16]}))
     print(f"# total {time.perf_counter() - t0:.1f} s")
     print(smi())

@@ -28,7 +28,15 @@ reference's layer: factor sweeps (:class:`~repro_torch.campaign.SweepScheduler`,
 :mod:`repro_torch.sweeps`, with racing allocation), the cross-run drift
 audit (:mod:`repro_torch.history`) and the sim calibration fit
 (:mod:`repro_torch.calibrate`); every cell, audited run and calibration
-candidate samples through ``sim_scan``.
+candidate samples through ``sim_scan``. The fault-tolerant sweep fleet
+(:mod:`repro_torch.fleet`) runs a sweep's cells under leases, one worker
+process per attempt forked from a fork server (a worker never inherits a
+CUDA context), with seeded fault injection; its merged store equals the
+serial run's record for record. The PGMPI guideline family
+(``SIM_GUIDELINES``, :mod:`repro_torch.guidelines`) verifies the
+simulated library through the same campaign.
+:class:`~repro_torch.campaign.FunctionBackend` lifts an
+``(epoch_factory, measure)`` pair into the backend protocol.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 each kernel's plain PyTorch version runs instead.

@@ -10,12 +10,14 @@ persistent result store, and the resumable campaign orchestrator. ::
     res = Campaign(spec, TorchSimBackend(p=16, device="cpu")).run()
 
 :class:`TorchKernelBackend` runs the same method against the hand-written
-kernels and their plain versions (the kernel A/B path).
+kernels and their plain versions (the kernel A/B path);
+:class:`FunctionBackend` wraps any ``(epoch_factory, measure)`` pair.
 :class:`SweepScheduler` compiles a factor grid into one campaign per cell
 (:mod:`repro_torch.sweeps` reads which factors matter).
 """
 
-from .backends import MeasurementBackend, TorchKernelBackend, TorchSimBackend
+from .backends import (FunctionBackend, MeasurementBackend, TorchKernelBackend,
+                       TorchSimBackend)
 from .core import Campaign, CampaignResult, CampaignSpec
 from .store import SCHEMA_VERSION, ResultStore, StoreSnapshot
 from .sweep import CellResult, SweepResult, SweepScheduler, SweepSpec
@@ -24,6 +26,7 @@ __all__ = [
     "MeasurementBackend",
     "TorchSimBackend",
     "TorchKernelBackend",
+    "FunctionBackend",
     "Campaign",
     "CampaignResult",
     "CampaignSpec",

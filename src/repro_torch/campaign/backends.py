@@ -10,7 +10,8 @@ the port of the JAX package's ``SimBackend``, with the same dataclass
 fields and knobs, so a store it writes carries the same factors.
 :class:`TorchKernelBackend` measures real work instead: the hand-written
 Hopper kernels against their plain PyTorch versions, the port of
-``KernelBackend``.
+``KernelBackend``. :class:`FunctionBackend` lifts a bare ``(epoch_factory,
+measure)`` pair into the protocol.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ from ..kernels.ops import IMPLS, make_benchmark_op
 from ..simengine import (resolve_device, run_windowed_epochs_torch,
                          run_windowed_torch)
 
-__all__ = ["MeasurementBackend", "TorchSimBackend", "TorchKernelBackend"]
+__all__ = ["MeasurementBackend", "TorchSimBackend", "TorchKernelBackend",
+           "FunctionBackend"]
 
 _SYNC_KW = dict(n_fitpts=200, n_exchanges=40)
 
@@ -441,3 +443,57 @@ class TorchKernelBackend:
 
     def default_cases(self) -> list[TestCase]:
         return [TestCase("flash_attention", s) for s in (64, 128)]
+
+
+# ---------------------------------------------------------------------------
+# Legacy-pair adapter
+# ---------------------------------------------------------------------------
+
+@dataclass
+class FunctionBackend:
+    """Lift a bare ``(epoch_factory, measure)`` pair into the
+    :class:`MeasurementBackend` protocol (the JAX package's
+    ``FunctionBackend``).
+
+    The migration path off the deprecated legacy form of
+    :func:`~repro_torch.core.design.run_design`: anything that could be
+    expressed as the pair is expressible as this backend, and gains what
+    the pair never had — a :class:`~repro_torch.core.factors.FactorSet` (so
+    results can live in stores, sweeps and audits) and a ``default_cases``
+    hook. ``name`` lands in the factor set's ``measurement_backend``
+    field: give two different measurement functions two different names,
+    or their campaigns will collide on one fingerprint. ``device`` is the
+    device the functions run on, recorded in the factors as
+    :class:`TorchKernelBackend` records it: ``"cuda"`` (the default) or
+    ``"cpu"``. Constructing a CUDA backend on a machine without a GPU
+    raises.
+    """
+
+    epoch_factory: Any                 # Callable[[int], Any]
+    measure_fn: Any                    # Callable[[Any, TestCase, int], array]
+    name: str = "function"
+    cases: tuple = ()
+    device: str = "cuda"               # cuda | cpu
+
+    def __post_init__(self):
+        resolve_device(self.device)
+
+    def make_epoch(self, epoch: int) -> Any:
+        return self.epoch_factory(epoch)
+
+    def measure(self, ctx: Any, case: TestCase, nrep: int) -> np.ndarray:
+        return np.asarray(self.measure_fn(ctx, case, nrep), np.float64)
+
+    def factors(self, design: ExperimentDesign) -> FactorSet:
+        dev = resolve_device(self.device)
+        return capture_torch_factors(
+            device=dev,
+            backend=dev.type,
+            device_kind=(torch.cuda.get_device_name(dev)
+                         if dev.type == "cuda" else "cpu"),
+            measurement_backend=self.name,
+            **_design_factor_kw(design),
+        )
+
+    def default_cases(self) -> list[TestCase]:
+        return [TestCase(op, int(m)) for op, m in self.cases]

@@ -295,7 +295,10 @@ def _as_backend_pair(backend_or_factory, measure):
     ``(epoch_factory, measure)`` pair; return the pair.
 
     The backend protocol is the single entry point: it carries factor
-    capture, default cases and provenance that the bare pair cannot.
+    capture, default cases and provenance that the bare pair cannot, so
+    results measured through a pair are second-class citizens in every
+    layer above (stores, sweeps, audits). Wrap a pair in
+    :class:`~repro_torch.campaign.FunctionBackend` instead.
     """
     if measure is None:
         if not (hasattr(backend_or_factory, "make_epoch")
@@ -305,9 +308,9 @@ def _as_backend_pair(backend_or_factory, measure):
                 "together with a measure callable")
         return backend_or_factory.make_epoch, backend_or_factory.measure
     warnings.warn(
-        "run_design(epoch_factory, measure) is deprecated; pass an object "
-        "with make_epoch and measure (the MeasurementBackend protocol is "
-        "the single entry point)",
+        "run_design(epoch_factory, measure) is deprecated; wrap the pair "
+        "in repro_torch.campaign.FunctionBackend (the MeasurementBackend "
+        "protocol is the single entry point)",
         DeprecationWarning, stacklevel=3)
     return backend_or_factory, measure
 

@@ -38,14 +38,15 @@ window (the barrier scheme, :mod:`repro_torch.core.timing`).
 epochs: every term is sampled for all epochs in one kernel launch, each
 epoch from its own generator, so a lane's durations are bit-identical to
 what the per-epoch engine draws for that epoch. The window then runs per
-epoch over chunks of repetitions in float32 on window-relative times, with
-the float64 chain (entry cumsum/cummax, previous-window row) carried across
-chunks, and returns only the O(nrep) times and flags.
+epoch through the per-epoch engine's own float64 window on the device, and
+only the O(nrep) times and flags come back to the host: a fused record is
+the per-epoch record, bit for bit, so how a campaign was scheduled (fused,
+per epoch, or across a fleet's retried attempts) never changes what it
+measured.
 """
 
 from __future__ import annotations
 
-import functools
 import os
 import weakref
 from concurrent.futures import ThreadPoolExecutor
@@ -140,16 +141,6 @@ def engine_stats() -> dict:
 def reset_engine_stats() -> None:
     _STATS.dispatches = 0
     _STATS.shape_keys.clear()
-
-
-def _chunk_for(p: int, n: int) -> int:
-    """Repetitions per chunk of the fused window: the largest power of two
-    with ``chunk * p <= 2**24``, never above ``n``. Each of the ~30
-    elementwise launches of a chunk then moves a 64 MB float32
-    ``(chunk, p)`` block, so launch overhead stays small against memory
-    time, and the chunk's temporaries stay near 1 GB at any ``p``."""
-    ch = max(1, (1 << 24) // max(1, p))
-    return min(1 << (ch.bit_length() - 1), n)
 
 
 def _terms(op, p: int, msize: int):
@@ -503,91 +494,16 @@ class FusedWindowRun:
         return self.times[self.errors == 0]
 
 
-@functools.lru_cache(maxsize=None)
-def _norm_lut(device: torch.device) -> torch.Tensor:
-    """2^16-entry float32 normal-quantile table (quantile midpoints, so the
-    discretized draw is exactly stratified): the fused window draws 16-bit
-    indices into it for the finish-imbalance factors."""
-    q = (torch.arange(65536, dtype=_F64) + 0.5) / 65536.0
-    return torch.special.ndtri(q).to(_F32).to(device)
-
-
-def _window_fused(durations, gen, rk, rank_imbalance, start_time, win_size,
-                  nrep, ch):
-    """The window of one epoch over chunks of ``ch`` repetitions. Per-rank
-    arithmetic is float32 on times relative to each window's target; the
-    deadline and the global-time conversion are affine in the target, so
-    they reduce to per-rank slope/anchor pairs. Returns numpy
-    ``(times, errors, end_true of repetition nrep - 1)``."""
-    dev = durations.device
-    slope, intercept, init_t = rk["slope"], rk["intercept"], rk["init_t"]
-    off, skew, scale, t0 = rk["off"], rk["skew"], rk["scale"], rk["t0"]
-    p = t0.shape[0]
-    alpha = 1.0 / ((1.0 - slope) * (1.0 + scale) * (1.0 + skew))
-    beta = ((intercept / (1.0 - slope) + init_t) / (1.0 + scale) - off) / (1.0 + skew)
-    gamma = (1.0 - slope) * (1.0 + scale) * (1.0 + skew)
-    delta = (off * (1.0 + scale) - init_t) * (1.0 - slope) - intercept
-    T0 = start_time
-    d0_32 = ((alpha - 1.0) * T0 + beta).to(_F32)
-    g0_32 = ((gamma - 1.0) * T0 + delta).to(_F32)
-    am1_32 = (alpha - 1.0).to(_F32)
-    gm1_32 = (gamma - 1.0).to(_F32)
-    gam32 = gamma.to(_F32)
-    maxt0 = t0.max()
-    ws32 = torch.tensor(win_size, dtype=_F32, device=dev)
-    ri32 = torch.tensor(rank_imbalance, dtype=_F32, device=dev)
-    lut = _norm_lut(dev)
-
-    times = torch.empty(nrep, dtype=_F64, device=dev)
-    errors = torch.empty(nrep, dtype=torch.int64, device=dev)
-    c_run = torch.zeros((), dtype=_F64, device=dev)
-    c_max = torch.full((), -torch.inf, dtype=_F64, device=dev)
-    prev_last = (t0 - T0).to(_F32) + ws32
-    last_row = nrep - 1
-    for lo in range(0, nrep, ch):
-        m = min(ch, nrep - lo)
-        tau = win_size * torch.arange(lo, lo + m, dtype=_F64, device=dev)
-        tau32 = tau.to(_F32)[:, None]
-        z = lut[torch.randint(0, 65536, (m, p), generator=gen, device=dev)]
-        drel = am1_32 * tau32 + d0_32
-        span = durations[lo:lo + m].to(_F32)[:, None] \
-            * torch.clamp_min(1.0 + ri32 * z, 0.25)
-        e = span.amax(dim=1).to(_F64)
-        dmaxrel = drel.amax(dim=1).to(_F64)
-        T = T0 + tau
-        C = c_run + torch.cat([torch.zeros(1, dtype=_F64, device=dev),
-                               torch.cumsum(e[:-1], dim=0)])
-        cm = torch.cummax(torch.cat([c_max[None], T + dmaxrel - C]),
-                          dim=0).values[1:]
-        all_in = C + torch.clamp_min(cm, maxt0)
-        endrel = (all_in - T).to(_F32)[:, None] + span
-        prevrel = torch.cat([prev_last[None, :], endrel[:-1]], dim=0) - ws32
-        startrel = torch.maximum(drel, prevrel)
-        late = (drel <= prevrel).any(dim=1)
-        base = gm1_32 * tau32 + g0_32
-        egrel = base + gam32 * endrel
-        sgrel = base + gam32 * startrel
-        took = (egrel > ws32).any(dim=1)
-        errors[lo:lo + m] = late.to(torch.int64) * START_LATE \
-            | took.to(torch.int64) * TOOK_TOO_LONG
-        times[lo:lo + m] = egrel.amax(dim=1).to(_F64) - sgrel.amin(dim=1).to(_F64)
-        c_run = C[-1] + e[-1]
-        c_max = cm[-1]
-        prev_last = endrel[-1]
-        if lo <= last_row < lo + m:
-            et_last = endrel[last_row - lo].to(_F64) + (T0 + win_size * last_row)
-    return times.cpu().numpy(), errors.cpu().numpy(), et_last.cpu().numpy()
-
-
 def run_windowed_epochs_torch(nets, syncs, ops, msize, nrep, win_size,
                               ranks=None, device="cuda") -> "list[FusedWindowRun]":
     """Measure one case across launch epochs: ``nets[e] / syncs[e] /
     ops[e]`` are epoch ``e``'s simulator objects.
 
     Each cost-model term is sampled for all epochs in one kernel launch;
-    the window runs per epoch (start times differ). Host RNG order per
-    epoch, the AR(1) carries and the ``net.t`` writebacks are those of
-    ``E`` sequential :func:`run_windowed_torch` calls, so fused and
+    the window runs per epoch (start times differ) through the per-epoch
+    engine's window. Host RNG order per epoch, the AR(1) carries, the
+    ``net.t`` writebacks and the times and flags are those of ``E``
+    sequential :func:`run_windowed_torch` calls, bit for bit, so fused and
     per-epoch measurement of different cases may interleave freely.
     Returns one :class:`FusedWindowRun` per epoch.
     """
@@ -604,7 +520,6 @@ def run_windowed_epochs_torch(nets, syncs, ops, msize, nrep, win_size,
                 for _ in range(E)]
 
     n = _bucket(nrep)
-    ch = _chunk_for(p, nrep)
     # Host pass: per-epoch window origins and seeds; per-net RNG order
     # (seed before biases) matches the per-epoch engine.
     start_times, seeds, term_lists = [], [], []
@@ -624,11 +539,13 @@ def run_windowed_epochs_torch(nets, syncs, ops, msize, nrep, win_size,
     rk = _rank_arrays(nets, syncs, ranks, dev)
     runs = []
     for e in range(E):
-        _STATS.count(("window_fused", ch, p))
-        times, errors, et_last = _window_fused(
-            durations[e], _generator(dev, seeds[e], nterms),
-            {k: v[e] for k, v in rk.items()}, ops[e].rank_imbalance,
-            start_times[e], win_size, nrep, ch)
-        nets[e].t[ranks] = et_last
-        runs.append(FusedWindowRun(times=times, errors=errors))
+        _STATS.count(("window_fused", n, p))
+        times, errors, _, _, _, end = _window(
+            durations[e], _generator(dev, seeds[e], nterms), rk["t0"][e],
+            rk["off"][e], rk["skew"][e], rk["scale"][e], rk["slope"][e],
+            rk["intercept"][e], rk["init_t"][e], ops[e].rank_imbalance,
+            start_times[e], win_size)
+        nets[e].t[ranks] = end[nrep - 1].cpu().numpy()
+        runs.append(FusedWindowRun(times=times[:nrep].cpu().numpy(),
+                                   errors=errors[:nrep].cpu().numpy()))
     return runs

@@ -7,6 +7,7 @@ certified by the reference's own TOST audit engine.
 
 import inspect
 import json
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -14,15 +15,17 @@ import pytest
 import torch
 
 from repro.campaign import ResultStore as RefStore
+from repro.campaign import FunctionBackend as RefFunctionBackend
 from repro.campaign import SimBackend
 from repro.core import SimNet as RefNet
 from repro.core import make_op as ref_make_op
 from repro.core import make_sync as ref_make_sync
 from repro.history import audit_tables
-from repro_torch.campaign import (Campaign, CampaignSpec, ResultStore,
-                                  TorchSimBackend)
+from repro_torch.campaign import (Campaign, CampaignSpec, FunctionBackend,
+                                  ResultStore, TorchSimBackend)
 from repro_torch.core import (ExperimentDesign, SimNet, TestCase,
-                              capture_torch_factors, make_op, make_sync)
+                              capture_torch_factors, make_op, make_sync,
+                              run_design)
 
 ARCHIVE = Path(__file__).resolve().parents[1] / "benchmarks" \
     / "reference_archive" / "run-000.jsonl"
@@ -202,3 +205,96 @@ def test_slice_gate_certifies_against_reference_archive():
     report = audit_tables(ref, Campaign(_audit_spec(), control).run().table)
     assert {(c.op, c.msize) for c in report.drifted()} \
         == {("bcast", 512), ("bcast", 4096)}
+
+
+# ---------------------------------------------------------------------------
+# FunctionBackend: the (epoch_factory, measure) pair as a backend
+# ---------------------------------------------------------------------------
+
+FN_CASES = [TestCase("allreduce", 256), TestCase("bcast", 4096)]
+
+
+def _pair_source():
+    """A port backend whose bound methods serve as the legacy pair: they
+    pickle by reference, so spawned workers can run them."""
+    return TorchSimBackend(p=4, seed0=50, device="cpu",
+                           sync_kw=dict(n_fitpts=30, n_exchanges=10))
+
+
+def _records_view(records):
+    return [(r.case, r.epoch, r.times.tolist()) for r in records]
+
+
+def test_function_backend_records_equal_the_deprecated_pair():
+    design = ExperimentDesign(n_launch_epochs=3, nrep=20, seed=4)
+    src = _pair_source()
+    backend = FunctionBackend(src.make_epoch, src.measure, name="sim-pair",
+                              cases=(("allreduce", 256), ("bcast", 4096)),
+                              device="cpu")
+    with pytest.deprecated_call(match="FunctionBackend"):
+        legacy = run_design(design, src.make_epoch, src.measure, cases=FN_CASES)
+    modern = run_design(design, backend, cases=FN_CASES)
+    assert len(modern) == 6
+    assert _records_view(modern) == _records_view(legacy)
+    # default_cases() come from `cases`
+    assert _records_view(run_design(design, backend)) == _records_view(modern)
+    assert all(r.times.dtype == np.float64 for r in modern)
+
+
+def test_function_backend_names_key_the_fingerprint():
+    """``name`` is the factor set's ``measurement_backend``: two names, two
+    fingerprints; the design fields are the reference's."""
+    design = ExperimentDesign(n_launch_epochs=3, nrep=20, seed=4)
+    src = _pair_source()
+    a = FunctionBackend(src.make_epoch, src.measure, name="a", device="cpu")
+    b = FunctionBackend(src.make_epoch, src.measure, name="b", device="cpu")
+    fa, fb = a.factors(design), b.factors(design)
+    assert fa.fingerprint() != fb.fingerprint()
+    assert fa.fingerprint(exclude=("measurement_backend",)) \
+        == fb.fingerprint(exclude=("measurement_backend",))
+    ref = RefFunctionBackend(src.make_epoch, src.measure, name="a")
+    mine, theirs = fa.to_dict(), ref.factors(design).to_dict()
+    for k in ("measurement_backend", "n_launch_epochs", "nrep", "nrep_min",
+              "nrep_max", "rel_ci_target", "design_seed", "shuffle"):
+        assert mine[k] == theirs[k], k
+    assert mine["backend"] == "cpu" and dict(fa.extra)["device_name"] == "cpu"
+    assert a.default_cases() == []
+
+
+def test_function_backend_runs_over_spawned_workers_and_lambdas_fall_back():
+    """Picklable callables run over two spawned workers and give the
+    serial records; a lambda cannot be sent, so the epochs run serially,
+    with the reference's warning."""
+    design = ExperimentDesign(n_launch_epochs=4, nrep=20, seed=3)
+    src = _pair_source()
+    backend = FunctionBackend(src.make_epoch, src.measure, name="sim-pair",
+                              device="cpu")
+    serial = run_design(design, backend, cases=FN_CASES, n_workers=1)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        parallel = run_design(design, backend, cases=FN_CASES, n_workers=2)
+    assert not [w for w in caught if "serially" in str(w.message)]
+    assert _records_view(parallel) == _records_view(serial)
+
+    lam = FunctionBackend(src.make_epoch,
+                          lambda ctx, case, nrep: src.measure(ctx, case, nrep),
+                          device="cpu")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        records = run_design(ExperimentDesign(n_launch_epochs=2, nrep=5, seed=0),
+                             lam, cases=FN_CASES[:1], n_workers=2)
+    assert len(records) == 2
+    assert any("not picklable" in str(w.message) for w in caught)
+
+
+def test_deprecation_message_names_function_backend(monkeypatch):
+    design = ExperimentDesign(n_launch_epochs=1, nrep=5, seed=0)
+    src = _pair_source()
+    with pytest.warns(DeprecationWarning,
+                      match=r"repro_torch\.campaign\.FunctionBackend"):
+        run_design(design, src.make_epoch, src.measure, cases=FN_CASES[:1])
+    # a FunctionBackend wants the card unless asked for the CPU
+    assert inspect.signature(FunctionBackend).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FunctionBackend(src.make_epoch, src.measure)

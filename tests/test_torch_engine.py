@@ -11,8 +11,9 @@ Three levels, at the reference's own bounds:
     (``tests/test_batch_equivalence.py``);
   * statistical when live — Philox/Mersenne draws against numpy draws.
 
-The fused engine is held against the per-epoch port as the reference
-holds its own (``tests/test_simjax_fused.py``). Random-walk clocks are
+The fused engine is held against the per-epoch port bit for bit (it runs
+the per-epoch window on lanes drawn bit-identically), so a campaign's
+records do not depend on how its epochs were scheduled. Random-walk clocks are
 held against the reference's ``batch_rw`` engine the same two ways
 (exact on frozen drift paths when noise-free, statistical when live).
 """
@@ -314,14 +315,14 @@ def test_fused_lanes_draw_per_epoch_durations_bitwise():
                                       400e-6, device=CPU)
     for e in range(E):
         assert ops_u[e]._ar_state == ops_f[e]._ar_state
-        res = wilcoxon_rank_sum(unfused[e].valid_times, fused[e].valid_times)
-        assert res.p_value > 0.01, (e, res.p_value)
-        np.testing.assert_allclose(nets_u[e].t, nets_f[e].t, rtol=1e-5)
+        np.testing.assert_array_equal(fused[e].times, unfused[e].times)
+        np.testing.assert_array_equal(fused[e].errors, unfused[e].errors)
+        np.testing.assert_array_equal(nets_f[e].t, nets_u[e].t)
 
 
 def test_fused_exact_when_noise_free():
-    """No noise, no imbalance: the float32 relative-frame window equals the
-    float64 per-epoch window to float32 resolution, with the same flags."""
+    """No noise, no imbalance: the fused engine equals the per-epoch one,
+    with the same flags."""
     E, nrep = 2, 300
     nets_u, syncs_u, ops_u = _epochs(E, seed0=11, **NOISE_FREE)
     nets_f, syncs_f, ops_f = _epochs(E, seed0=11, **NOISE_FREE)
@@ -330,31 +331,54 @@ def test_fused_exact_when_noise_free():
     fused = run_windowed_epochs_torch(nets_f, syncs_f, ops_f, 4096, nrep,
                                       400e-6, device=CPU)
     for e in range(E):
-        np.testing.assert_allclose(fused[e].times, unfused[e].times, rtol=1e-5)
+        np.testing.assert_array_equal(fused[e].times, unfused[e].times)
         assert np.array_equal(fused[e].errors, unfused[e].errors)
-        np.testing.assert_allclose(nets_f[e].t, nets_u[e].t, rtol=1e-5)
+        np.testing.assert_array_equal(nets_f[e].t, nets_u[e].t)
 
 
-def test_fused_chunking_does_not_change_results(monkeypatch):
-    """The chunk length only splits the work: with the imbalance draw off,
-    chunks of 64 give the single-chunk results to float32 resolution."""
-    nets_a, syncs_a, ops_a = _epochs(1, seed0=5, rank_imbalance=0.0)
-    nets_b, syncs_b, ops_b = _epochs(1, seed0=5, rank_imbalance=0.0)
-    a = run_windowed_epochs_torch(nets_a, syncs_a, ops_a, 4096, 500, 400e-6,
-                                  device=CPU)[0]
-    monkeypatch.setattr(simengine, "_chunk_for", lambda p, n: 64)
-    b = run_windowed_epochs_torch(nets_b, syncs_b, ops_b, 4096, 500, 400e-6,
-                                  device=CPU)[0]
-    np.testing.assert_allclose(b.times, a.times, rtol=1e-5)
-    assert np.array_equal(a.errors, b.errors)
-    np.testing.assert_allclose(nets_b[0].t, nets_a[0].t, rtol=1e-6)
+def test_fused_chunking_does_not_change_results():
+    """How epochs are grouped into fused calls only splits the work: three
+    epochs in one call equal each epoch in a call of its own, bit for bit
+    (live noise, a composite op of two terms)."""
+    op = "reduce+bcast"
+    nets_a, syncs_a, ops_a = _epochs(3, seed0=5)
+    nets_b, syncs_b, ops_b = _epochs(3, seed0=5)
+    ops_a = [make_composite_op(op) for _ in range(3)]
+    ops_b = [make_composite_op(op) for _ in range(3)]
+    together = run_windowed_epochs_torch(nets_a, syncs_a, ops_a, 4096, 500,
+                                         400e-6, device=CPU)
+    alone = [run_windowed_epochs_torch([nets_b[e]], [syncs_b[e]], [ops_b[e]],
+                                       4096, 500, 400e-6, device=CPU)[0]
+             for e in range(3)]
+    for a, b, na, nb in zip(together, alone, nets_a, nets_b):
+        np.testing.assert_array_equal(a.times, b.times)
+        np.testing.assert_array_equal(a.errors, b.errors)
+        np.testing.assert_array_equal(na.t, nb.t)
+
+
+def test_fused_campaign_equals_per_epoch_campaign_bitwise():
+    """A campaign measured fused and the same campaign measured epoch by
+    epoch (what a fleet attempt under a fault plan runs) store the same
+    times, bit for bit, top-ups included (50 us windows discard most
+    calls at p = 16)."""
+    spec = CampaignSpec([TestCase("allreduce", 4096), TestCase("bcast", 512),
+                         TestCase("reduce+bcast", 1024)],
+                        ExperimentDesign(n_launch_epochs=4, nrep=300, seed=2))
+    kw = dict(p=16, seed0=3, device=CPU, win_size=50e-6,
+              sync_kw=dict(n_fitpts=40, n_exchanges=10))
+    fused = Campaign(spec, TorchSimBackend(**kw)).run()
+    per_epoch = Campaign(spec, TorchSimBackend(fuse_epochs=False, **kw)).run()
+    assert all(r.meta["fused"] for r in fused.records)
+    assert not any(r.meta["fused"] for r in per_epoch.records)
+    assert len(fused.records) == len(per_epoch.records) == 12
+    for a, b in zip(fused.records, per_epoch.records):
+        assert (a.case, a.epoch) == (b.case, b.epoch)
+        np.testing.assert_array_equal(a.times, b.times)
 
 
 def test_chunk_and_bucket_rules():
     assert simengine._bucket(1) == 32 and simengine._bucket(33) == 64
     assert simengine._bucket(1023) == 1024 and simengine._bucket(1025) == 1025
-    assert simengine._chunk_for(512, 10**5) == 32768
-    assert simengine._chunk_for(16, 300) == 300
 
 
 # ---------------------------------------------------------------------------

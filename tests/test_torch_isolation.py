@@ -1,8 +1,9 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor the JAX package ``repro``, checked statically over the
 sources and at run time in a subprocess where both are blocked (a
-simulated campaign, a kernel guideline campaign, a two-cell factor sweep
-and a drift audit, on the CPU)."""
+simulated campaign, a kernel guideline campaign, a two-cell factor sweep,
+a drift audit and a two-cell in-process fleet under soft crashes, on the
+CPU)."""
 
 import ast
 import os
@@ -77,9 +78,23 @@ sweep = SweepScheduler(sweep_spec, sweep_backend).run()
 assert len(sweep.cells) == 2
 audit = audit_tables(sweep.cells[0].table, sweep.cells[1].table)
 assert len(audit.cells) == 1
+
+import tempfile
+from pathlib import Path
+from repro_torch.campaign import ResultStore
+from repro_torch.fleet import FaultPlan, FleetConfig, FleetScheduler
+
+store = ResultStore(Path(tempfile.mkdtemp()) / "fleet.jsonl")
+fleet = FleetScheduler(sweep_spec, sweep_backend, store,
+                       FleetConfig(n_workers=1, sleep=lambda s: None,
+                                   faults=FaultPlan(seed=0, p_crash=1.0,
+                                                    within_calls=1))).run()
+assert len(fleet.cells) == 2 and not fleet.quarantined
+assert fleet.fleet["n_failed_attempts"] == 2
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not loaded, loaded
-print("ok", len(res.records), report.n_measured, len(sweep.cells), len(audit.cells))
+print("ok", len(res.records), report.n_measured, len(sweep.cells), len(audit.cells),
+      len(fleet.cells))
 """
 
 
@@ -88,4 +103,4 @@ def test_port_runs_with_jax_and_reference_blocked():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip() == "ok 4 8 2 1"
+    assert proc.stdout.strip() == "ok 4 8 2 1 2"
