@@ -4,8 +4,8 @@ this checkout, hold each against its plain PyTorch version on the card,
 drive the paths (the simulated measurement campaign, the kernel A/B
 campaign, on random-walk clocks campaigns and the barrier scheme, the
 factor sweeps, drift audit and calibration over the campaign, the
-performance-guideline family and the fault-tolerant sweep fleet) at sizes
-users run, and check what comes out.
+performance-guideline family, the fault-tolerant sweep fleet and the model
+zoo's serving path) at sizes users run, and check what comes out.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -105,10 +105,38 @@ Phases, each of which raises (exit code 1) on failure:
      measures exactly those two); a straggler on every first attempt
      (the run ends long before the stall); the in-process fleet under
      soft crashes (equal to serial);
- 18. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
+ 18. the model zoo on the card: every ``SMOKE`` architecture in f32,
+     weights drawn on the CPU and moved, through ``forward``, ``prefill``
+     of 8 tokens and 4 ``decode_step`` calls, card (the ``tf32x3`` flash
+     kernel) == CPU (``attention_reference``) within 1e-4 of max |logit|,
+     prefill == repeated decode within 2e-4, flash launches per
+     architecture;
+ 19. gemma2-2b at full width (weights from a seeded generator on the
+     card): (a) f32 ``make_prefill_step`` at B 1, S 8192, kernel ==
+     ``impl="ref"`` within 1e-4 of max |logit|, each layer's attention
+     output against the plain path on the same input within 1e-5 of its
+     max; (b) bf16, the serving run of ``examples/serve_lm_torch.py``
+     (batch 4, prompt 128, 32 greedy steps: prefill tokens/s, the
+     Tukey-filtered step latency with its 95% CI, peak memory,
+     ``wgmma_bf16`` launches); (c) bf16 decode at depth 8192 (batch 8, a
+     seeded cache with keys at std ``CACHE_KEY_STD``, pos 8190, 8 steps):
+     every attention call held against the plain version in f32 on its
+     own inputs at phase 7's bf16 check, the logits against
+     ``impl="ref"`` and against the model with f32 attention within
+     ``BF16_DECODE_BOUND``, with the top-1 agreement, and two wrong
+     attentions (zero, no window) that must fail both checks; (d)
+     ``torch.profiler`` over 5 decode steps at (b)'s and (c)'s shapes
+     (device time in flash, matmuls and the rest, the idle share, the
+     host ops), and one local and one global layer's flash call on (c)'s
+     cache, each held at phase 7's bf16 check, the global one timed alone
+     beside its bound and SDPA on the same tensors;
+ 20. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
      once per type; ``sim_scan``'s entry counts its launches on the main
      path, on the two paths of phases 11 and 12, on the three of phases
-     13-15 and on phases 16 and 17 (this process only).
+     13-15 and on phases 16 and 17 (this process only); the two flash
+     entries add ``launches_serve``, their launches on the serving path
+     (phases 18 and 19a for ``tf32x3``, 19b for ``wgmma_bf16``), and the
+     bf16 entry its time at 19d's depth-8192 decode call.
 
 Every timed kernel in phases 3, 7 and 8 has ``nvidia-smi``'s SM clock
 (now and max), power draw and temperature, sampled right before and after
@@ -122,6 +150,7 @@ repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import json
 import re
@@ -177,32 +206,40 @@ def clocked(timer) -> tuple[float, str]:
     return ms, f"[sm clock, max, power, temp: {before} -> {clocks()}]"
 
 
-def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+def cuda_ms(fn, reps: int, queued: bool = False, spin: float = 2e5,
+            host: list | None = None) -> float:
     """Mean device time of ``fn()`` over ``reps`` calls, after a warm-up.
 
-    ``queued``: the stream is held by a spin kernel (~100 us per call)
-    while the host queues the calls, so the events time the device's work
-    back to back, not the host's enqueue rate, for calls shorter than
-    their host overhead."""
+    ``queued``: the stream is held by a spin kernel (``spin`` cycles, ~100
+    us at the default, per call) while the host queues the calls, so the
+    events time the device's work back to back, not the host's enqueue
+    rate, for calls shorter than their host overhead. A list passed as
+    ``host`` receives the host's us per call of that loop (with
+    ``queued``, the device never stalls it)."""
     import torch
 
     fn()
     if queued:
         torch.cuda.synchronize()
-        torch.cuda._sleep(int(2e5 * reps))
+        torch.cuda._sleep(int(spin * reps))
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t = time.perf_counter()
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    if host is not None:
+        host.append((time.perf_counter() - t) / reps * 1e6)
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
-def trace(torch, fn, reps=5) -> tuple[dict, float]:
+def trace(torch, fn, reps=5, host=None) -> tuple[dict, float]:
     """``torch.profiler`` over ``reps`` calls of ``fn`` after a warm-up:
     device time per call of each kernel (by name, cut to 60 characters)
-    and the share of the calls' CUDA-event span the kernels fill."""
+    and the share of the calls' CUDA-event span the kernels fill. A dict
+    passed as ``host`` receives each host op's self CPU ms and count per
+    call (the profiler's own cost included)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -218,6 +255,8 @@ def trace(torch, fn, reps=5) -> tuple[dict, float]:
     per_kernel = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if host is not None:
+                host[e.key[:40]] = (e.self_cpu_time_total / 1e3 / reps, e.count // reps)
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -614,11 +653,11 @@ def rel_err(a, b) -> float:
 
 
 def attn_bound_ms(b, s, t, h, hkv, d, nbytes, flops_peak, causal=True,
-                  q_offset=0):
+                  q_offset=0, window=None):
     """Least time for attention: the two products over the (q, k) pairs the
     mask leaves, or q, k, v read and o written once, whichever is longer."""
     if causal:
-        pairs = sum(min(t, q_offset + i + 1) for i in range(s))
+        pairs = sum(min(t, q_offset + i + 1, window or t) for i in range(s))
     else:
         pairs = s * t
     flops = 4.0 * b * h * d * pairs
@@ -1911,6 +1950,479 @@ def _fleet_runs(torch, device, p, nrep) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-19: the model zoo's serving path
+# ---------------------------------------------------------------------------
+
+GEMMA2 = "gemma2-2b"
+#: The std of 19c's cached keys. At std 1 a decode query's softmax spreads
+#: over thousands of random rows, attention's output is ~0.1 at most, and
+#: the bf16 residual (RMS ~48: unit embeddings times sqrt(2304)) cannot
+#: hold a change that small, so a model with no attention at all lands as
+#: close to the plain model as the kernel does (19c prints it). At std 4
+#: the softmax is peaked, a few keys carry the weight, as in a trained
+#: model, and attention moves the residual.
+CACHE_KEY_STD = 4.0
+#: The bound a bf16 decode step of the kernel model at depth 8192 is held
+#: to (max |err| over max |logit|, per step) against the same model with
+#: ``impl="ref"`` and with its attention run in f32 on the same bf16
+#: values. It is not phase 7's 2e-2, which bounds one attention output:
+#: 26 bf16 layers carry each rounding difference to the logits, so the
+#: plain path itself lands ~3e-2 from the model with f32 attention. A
+#: zero and an unwindowed attention, which 19c runs as controls, must
+#: land past it. Every attention call is also held alone at phase 7's
+#: check (:func:`bf16_held`).
+BF16_DECODE_BOUND = 5e-2
+#: 19a's bound on each layer's f32 attention output (max |err| over its
+#: max |value|), the per-layer bound of the CPU tests.
+F32_LAYER_BOUND = 1e-5
+MATMUL = re.compile(r"gemm|gemv|nvjet|cutlass|xmma|s16816|wmma|cublas|splitK", re.I)
+
+
+def reset_flash_counts():
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    flash_attention.launches = 0
+    for name in flash_attention.launches_by_instance:
+        flash_attention.launches_by_instance[name] = 0
+
+
+def flash_counts() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    return dict(flash_attention.launches_by_instance)
+
+
+def phase_model_smoke(torch) -> dict:
+    """Every smoke architecture on the card in f32, weights drawn on the CPU
+    and moved: ``forward``, ``prefill`` of 8 tokens and 4 ``decode_step``\\ s,
+    card (the ``tf32x3`` flash kernel) against CPU (``attention_reference``)
+    at 1e-4 of max |logit|, and prefill against repeated decode at the
+    reference's 2e-4. Returns the flash launches of the card runs."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, get_smoke
+    from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
+    from repro_torch.models.lm import encode
+
+    def run(cfg, model, toks, front):
+        kw = {}
+        if cfg.frontend == "vision":
+            kw["embeds"] = front
+        if cfg.frontend == "audio":
+            kw["memory"] = encode(cfg, model, front)
+        mem = kw.get("memory")
+        with torch.no_grad():
+            logits, aux = forward(cfg, model, toks, **kw)
+        pre, cache = prefill(cfg, model, toks[:, :8], memory=mem, max_len=16)
+        dec = [decode_step(cfg, model, cache, toks[:, 8 + i:9 + i], memory=mem)[0][:, 0]
+               for i in range(4)]
+        fresh = init_cache(cfg, toks.shape[0], 16, device=toks.device)
+        rep = [decode_step(cfg, model, fresh, toks[:, i:i + 1], memory=mem)[0][:, 0]
+               for i in range(8)]
+        return dict(forward=logits, prefill=pre, decode=torch.stack(dec, 1),
+                    repeated=torch.stack(rep, 1))
+
+    t0 = time.perf_counter()
+    totals = dict.fromkeys(flash_counts(), 0)
+    worst = 0.0
+    for i, arch in enumerate(ARCHS):
+        t = time.perf_counter()
+        cfg = get_smoke(arch)
+        cpu = init_params(cfg, device="cpu", seed=18 + i)
+        card = copy.deepcopy(cpu).to("cuda")
+        rng = np.random.default_rng(18 + i)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+        front = (torch.from_numpy(rng.normal(0, 1, (2, cfg.frontend_tokens, cfg.d_model))
+                                  .astype(np.float32)) if cfg.frontend else None)
+        before = flash_counts()
+        got = run(cfg, card, toks.cuda(), None if front is None else front.cuda())
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in flash_counts().items()}
+        want = run(cfg, cpu, toks, front)
+        errs = {k: rel_err(got[k].cpu(), want[k]) for k in want}
+        for k, e in errs.items():
+            require(torch.isfinite(got[k]).all() and e <= 1e-4,
+                    f"[18] {arch} {k}: card == CPU, {e:.3e} <= 1e-4 of max |logit|")
+        require(torch.allclose(got["prefill"], got["repeated"], rtol=2e-4, atol=2e-4),
+                f"[18] {arch}: prefill == repeated decode at 2e-4")
+        if cfg.family != "ssm":
+            require(launched["tf32x3"] > 0, f"[18] {arch}: attention ran the tf32x3 kernel")
+        require(launched["wgmma_bf16"] == launched["simt"] == 0, f"[18] {arch}: f32 only")
+        for k in totals:
+            totals[k] += launched[k]
+        worst = max(worst, *errs.values())
+        print(f"# [18 models] {arch}: card == CPU (forward {errs['forward']:.2e}, prefill "
+              f"{errs['prefill']:.2e}, decode {errs['decode']:.2e}, repeated "
+              f"{errs['repeated']:.2e} of max |logit|); flash launches "
+              f"{launched}; {time.perf_counter() - t:.2f} s")
+    print(f"# [18 models] all {len(ARCHS)} smoke architectures card == CPU within 1e-4 "
+          f"(worst {worst:.2e}), prefill == repeated decode within 2e-4; flash launches "
+          f"{totals}; {time.perf_counter() - t0:.2f} s")
+    return totals
+
+
+def visible(cfg, pos) -> list[int]:
+    """Keys each layer's decode query at ``pos`` sees (window on local
+    layers)."""
+    return [pos + 1 if cfg.is_global_layer(i) else min(pos + 1, cfg.window)
+            for i in range(cfg.n_layers)]
+
+
+def random_cache(torch, cfg, batch, max_len, pos, seed, key_std=1.0):
+    """A decode cache at ``pos`` whose K/V rows below ``pos`` are seeded
+    normals: values at std 1, keys at ``key_std``."""
+    from repro_torch.models import init_cache
+
+    cache = init_cache(cfg, batch, max_len)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    seg = cache["segments"][0]
+    seg["k"][:, :, :pos].normal_(std=key_std, generator=gen)
+    seg["v"][:, :, :pos].normal_(generator=gen)
+    cache["pos"] = pos
+    return cache
+
+
+def bf16_held(out, ref32) -> tuple[float, float, bool]:
+    """Phase 7's bf16 check of an attention output against the plain
+    version run in f32 on the same bf16 values: every element within 2e-2
+    (absolute and relative) and the RMS error within 1e-2 of the RMS of
+    the plain output. Returns (max |err|, RMS err / RMS, held)."""
+    import torch
+
+    out = out.float()
+    rms = (out - ref32).pow(2).mean().sqrt().item()
+    scale = ref32.pow(2).mean().sqrt().item()
+    held = bool(torch.allclose(out, ref32, rtol=2e-2, atol=2e-2)) and rms <= 1e-2 * scale
+    return (out - ref32).abs().max().item(), rms / max(scale, 1e-30), held
+
+
+@contextlib.contextmanager
+def attention_as(variant, records=None):
+    """Runs the model's attention calls (``repro_torch.models.attention.
+    attention_op``) as ``variant`` inside the block: ``"f32"`` the plain
+    version in f32 on the same values; ``"kernel"`` the flash kernel,
+    ``"zero"`` zeros, ``"no window"`` the kernel without the layer's
+    window, each of these three held at :func:`bf16_held` against the
+    plain version in f32, ``(window, max |err|, RMS ratio, held)``
+    appended to ``records``."""
+    from repro_torch.models import attention
+
+    kernel_op = attention.attention_op
+
+    def op(q, k, v, *, impl="auto", **kw):
+        ref32 = attention.attention_reference(q.float(), k.float(), v.float(), **kw)
+        if variant == "f32":
+            return ref32.to(q.dtype)
+        if variant == "zero":
+            out = ref32.new_zeros(q.shape, dtype=q.dtype)
+        else:
+            window = None if variant == "no window" else kw["window"]
+            out = kernel_op(q, k, v, impl="cuda", **{**kw, "window": window})
+        records.append((kw["window"], *bf16_held(out, ref32)))
+        return out
+
+    attention.attention_op = op
+    try:
+        yield
+    finally:
+        attention.attention_op = kernel_op
+
+
+def profile_decode(torch, cfg, model, cache, toks, reps=5) -> dict:
+    """:func:`trace` over ``reps`` decode steps (after one warm-up): device
+    ms per step in flash, matmuls and the rest, the idle share of the
+    steps' span, flash ms per call, and the host ops with the most self
+    CPU time per step."""
+    from repro_torch.models import decode_step
+
+    columns, host = iter(range(reps + 1)), {}
+
+    def step():
+        i = next(columns)
+        decode_step(cfg, model, cache, toks[:, i:i + 1])
+
+    per_kernel, busy = trace(torch, step, reps=reps, host=host)
+    split = dict(flash=0.0, matmul=0.0, rest=0.0)
+    for name, ms in per_kernel.items():
+        key = "flash" if "flash" in name else "matmul" if MATMUL.search(name) else "rest"
+        split[key] += ms
+    top = sorted(host.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(split=split, idle=1.0 - busy, flash_call=split["flash"] / cfg.n_layers,
+                per_kernel=per_kernel, span=sum(split.values()) / busy if busy else 0.0,
+                host=top)
+
+
+def time_prefill_calls(torch, cfg, seed) -> dict:
+    """One f32 flash call of 19a's prefill (B 1, S = T = 8192, gemma2-2b's
+    heads, soft-cap 50) timed alone, on a local (window 4096) and a global
+    layer, beside its bound, the plain version and, on the global layer,
+    SDPA on the same tensors (causal, no soft-cap: SDPA has none; timed
+    only). Inputs are seeded normals: the time does not depend on them."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    s, h, hkv, d = 8192, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(1, s, n, d, generator=gen, device="cuda") for n in (h, hkv, hkv))
+    rows = {}
+    for name, window in (("local", cfg.window), ("global", None)):
+        kw = dict(window=window, logit_cap=cfg.attn_softcap)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 10)
+        plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw), 2)
+        b_ms, by, _, _ = attn_bound_ms(1, s, s, h, hkv, d, 4, TF32_FLOPS / 3, window=window)
+        rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rows["global"]["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    print("# [19a f32 flash call, B 1, S = T = 8192] " + "; ".join(
+        f"{name}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+        f"plain {r['plain_ms']:.4f} ms" for name, r in rows.items())
+        + f"; sdpa f32 on the global layer's tensors {rows['global']['library_ms']:.4f} ms")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_gemma2_full(torch) -> dict:
+    """gemma2-2b at full width (26 layers, d 2304, 8/4 heads, D 256, d_ff
+    9216, vocab 256000, window 4096 on alternating layers, soft-caps
+    50/30), weights from a seeded generator on the card. Returns the flash
+    launches of (a) and (b)."""
+    import importlib.util
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.launch import make_decode_step, make_prefill_step
+    from repro_torch.models import init_params, num_params
+    from repro_torch.models.attention import attn_block
+
+    out = {}
+    cfg = get_config(GEMMA2)
+    rng = np.random.default_rng(19)
+
+    # (a) f32 prefill step, B 1, S 8192: the local layers mask past 4096
+    t0 = time.perf_counter()
+    cfg32 = cfg.scaled(dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg32, seed=19)
+    n = num_params(model)
+    require(n == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
+            f"[19a] {n} parameters: the analytic count plus the norm gains")
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 8192))).cuda()}
+    layer_errs = []
+
+    def check_layer(module, args, kwargs, output):
+        ref = attn_block(cfg32, module, args[0], is_global=kwargs["is_global"], impl="ref")
+        layer_errs.append(rel_err(output, ref))
+
+    hooks = [blk.attn.register_forward_hook(check_layer, with_kwargs=True)
+             for blk in model.segments[0]]
+    make_prefill_step(cfg32)(model, batch)
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = make_prefill_step(cfg32, impl="ref")(model, batch)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t
+    reset_flash_counts()
+    t = time.perf_counter()
+    got = make_prefill_step(cfg32)(model, batch)
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - t
+    out["a"] = flash_counts()
+    err = rel_err(got, want)
+    print(f"# [19a gemma2-2b f32] {n / 1e9:.3f} B parameters ({n * 4 / 1e9:.1f} GB); prefill "
+          f"step B 1 S 8192: kernel == plain at {err:.3e} of max |logit| "
+          f"{want.abs().max().item():.3f} (bound 1e-4); worst layer's attention output "
+          f"{max(layer_errs):.3e} of its max (bound {F32_LAYER_BOUND}; layer {int(np.argmax(layer_errs))}; global "
+          f"{max(layer_errs[1::2]):.3e}, local {max(layer_errs[0::2]):.3e}); wall kernel "
+          f"{kern_s:.3f} s, plain {ref_s:.3f} s; flash launches {out['a']}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - t0:.2f} s")
+    require(got.shape == (1, 8192, cfg.vocab_size) and bool(torch.isfinite(got).all()),
+            "[19a] logits finite, (1, 8192, 256000)")
+    require(err <= 1e-4, f"[19a] kernel == plain on the logits, {err:.3e} <= 1e-4 of max |logit|")
+    require(out["a"]["tf32x3"] == cfg.n_layers, "[19a] one tf32x3 launch per layer")
+    require(len(layer_errs) == cfg.n_layers and max(layer_errs) <= F32_LAYER_BOUND,
+            f"[19a] every layer's attention output == plain, worst {max(layer_errs):.3e} "
+            f"<= {F32_LAYER_BOUND} of its max")
+    del model, got, want, batch
+    torch.cuda.empty_cache()
+    out["f32_calls"] = time_prefill_calls(torch, cfg, seed=23)
+
+    # (b) bf16: the serving run of examples/serve_lm_torch.py
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=20)
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    spec = importlib.util.spec_from_file_location(
+        "serve_lm_torch", ROOT / "examples" / "serve_lm_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    r = example.serve(cfg, model, batch=4, prompt_len=128, tokens=32, seed=20)
+    out["b"] = flash_counts()
+    require(r["out"].shape == (4, 33) and bool(torch.isfinite(r["logits"].float()).all()),
+            "[19b] 33 ids per request, finite logits")
+    require(out["b"]["wgmma_bf16"] == cfg.n_layers * (128 + 32) and out["b"]["tf32x3"] == 0,
+            "[19b] every attention call through wgmma_bf16")
+    step_bound = (wbytes + 4 * sum(visible(cfg, 160)) * 4 * 256 * 2 * 2) / HBM_BYTES_PER_S * 1e3
+    print(f"# [19b gemma2-2b bf16 serve] batch 4, prompt 128 (prefill = 128 decode steps), "
+          f"32 greedy steps: prefill {r['prefill_s']:.3f} s, {r['prefill_tok_s']:.1f} tok/s; "
+          f"decode step (Tukey-filtered, {len(r['kept'])} of {len(r['latencies'])}) "
+          f"{r['mean'] * 1e3:.3f} ms [{r['lo'] * 1e3:.3f}, {r['hi'] * 1e3:.3f}] 95% CI, "
+          f"{r['decode_tok_s']:.1f} tok/s; bound {step_bound:.3f} ms a step "
+          f"(weights {wbytes / 1e9:.2f} GB + cache at 3.35 TB/s); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; flash launches {out['b']}; "
+          f"sample ids {r['out'][0, :8].tolist()}; {time.perf_counter() - t0:.2f} s")
+    del r
+
+    # (c) bf16 decode at depth 8192: batch 8, a seeded cache, pos 8190
+    t0 = time.perf_counter()
+    b, pos, steps = 8, 8190, 8
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, steps + 6))).cuda()
+
+    def decode_logits(cache, variant, records=None):
+        """``steps`` decode steps on a copy of ``cache``: the stacked
+        logits and the copy. ``"plain"`` is ``impl="ref"``; any other
+        variant runs through :func:`attention_as`."""
+        c = copy.deepcopy(cache)
+        fn = make_decode_step(cfg, impl="ref" if variant == "plain" else "auto")
+        with contextlib.nullcontext() if variant == "plain" else attention_as(variant, records):
+            logits = [fn(model, c, {"tokens": toks[:, i:i + 1]})[0].float()
+                      for i in range(steps)]
+        return torch.stack(logits), c
+
+    def step_errs(got, want):
+        return [rel_err(g, w) if bool(torch.isfinite(g).all()) else float("inf")
+                for g, w in zip(got, want)]
+
+    # at key std 1 attention cannot move the residual: printed, not held
+    cache = random_cache(torch, cfg, b, pos + steps + 6, pos, seed=21)
+    blind = max(step_errs(decode_logits(cache, "zero", [])[0], decode_logits(cache, "f32")[0]))
+    base = random_cache(torch, cfg, b, pos + steps + 6, pos, seed=21, key_std=CACHE_KEY_STD)
+    f32, _ = decode_logits(base, "f32")
+    plain, _ = decode_logits(base, "plain")
+    records = {v: [] for v in ("kernel", "zero", "no window")}
+    got, cache = decode_logits(base, "kernel", records["kernel"])
+    errs, errs32 = step_errs(got, plain), step_errs(got, f32)
+    agree = (got.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    controls = {v: max(step_errs(decode_logits(base, v, records[v])[0], f32))
+                for v in ("zero", "no window")}
+    local = [r for r in records["kernel"] if r[0] == cfg.window]
+    glob = [r for r in records["kernel"] if r[0] != cfg.window]
+    keys = visible(cfg, pos)
+    moved = wbytes + b * sum(keys) * 4 * 256 * 2 * 2
+    full = cfg.n_layers * 2 * b * 8192 * 4 * 256 * 2
+    print(f"# [19c gemma2-2b bf16 decode at depth 8192] batch 8, pos 8190-8197, {steps} "
+          f"steps, cached keys at std {CACHE_KEY_STD}: every attention call "
+          f"({len(records['kernel'])}) == plain in f32 at phase 7's bf16 check (worst max "
+          f"|err| local {max(r[1] for r in local):.3e}, global {max(r[1] for r in glob):.3e}; "
+          f"RMS err / RMS local {max(r[2] for r in local):.3e}, global "
+          f"{max(r[2] for r in glob):.3e}, bound 1e-2); logits: kernel == plain within "
+          f"{max(errs):.3e}, == f32 attention within {max(errs32):.3e}, plain == f32 "
+          f"attention within {max(step_errs(plain, f32)):.3e} of max |logit| (bound "
+          f"{BF16_DECODE_BOUND}; kernel == plain per step "
+          f"{', '.join(f'{e:.2e}' for e in errs)}); top-1 agreement {agree:.4f}; controls "
+          f"against f32 attention: zero {controls['zero']:.3e}, no window "
+          f"{controls['no window']:.3e} (at key std 1 zero attention lands within "
+          f"{blind:.3e}); step bound {moved / HBM_BYTES_PER_S * 1e3:.3f} ms "
+          f"({moved / 1e9:.2f} GB: weights {wbytes / 1e9:.2f} + visible cache "
+          f"{(moved - wbytes) / 1e9:.2f}; the whole 8192-deep cache would be "
+          f"{full / 1e9:.2f} GB); {time.perf_counter() - t0:.2f} s")
+    require(all(r[3] for r in records["kernel"]),
+            "[19c] every attention call == plain in f32 at phase 7's bf16 check")
+    require(not any(r[3] for r in records["zero"]),
+            "[19c] control: zero attention fails the per-call check on every layer")
+    require(not any(r[3] for r in records["no window"] if r[0] == cfg.window),
+            "[19c] control: attention without the window fails the per-call check on "
+            "every local layer")
+    require(max(errs) <= BF16_DECODE_BOUND and max(errs32) <= BF16_DECODE_BOUND,
+            f"[19c] kernel == plain ({max(errs):.3e}) and == f32 attention "
+            f"({max(errs32):.3e}) within {BF16_DECODE_BOUND} of max |logit|")
+    require(min(controls.values()) > BF16_DECODE_BOUND,
+            f"[19c] controls: zero and unwindowed attention land past {BF16_DECODE_BOUND}")
+    require(agree >= 0.9, f"[19c] greedy tokens agree on >= 90% ({agree:.4f})")
+    del f32, plain, got, base
+
+    # (d) the profiler over 5 decode steps of (b)'s shape and 5 of (c)'s
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    shapes = (("b: batch 4, depth 160", 4, 160), ("c: batch 8, depth 8196", 8, pos + steps - 2))
+    for label, bb, depth in shapes:
+        c = cache if bb == b else random_cache(torch, cfg, bb, depth + 8, depth, seed=22)
+        c["pos"] = depth
+        prof = profile_decode(torch, cfg, model, c, toks[:bb])
+        keys = visible(cfg, depth + 1)
+        bounds = [attn_bound_ms(bb, 1, kk, 8, 4, 256, 2, BF16_FLOPS, causal=False)[0]
+                  for kk in keys]
+        # one local and one global layer's decode call on the cache, held at
+        # phase 7's bf16 check at (c)'s depth; the global one timed alone:
+        # the kernel, and SDPA on the same tensors (a boolean mask for
+        # kv_len, no soft-cap: SDPA has none; timed only, never used)
+        q = torch.randn(bb, 1, 8, 256, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def layer_call(layer):
+            kw = dict(causal=False, logit_cap=cfg.attn_softcap, q_offset=depth,
+                      kv_len=depth + 1,
+                      window=2**30 if cfg.is_global_layer(layer) else cfg.window)
+            return c["segments"][0]["k"][layer], c["segments"][0]["v"][layer], kw
+
+        held = {}
+        for layer in (0, 1):
+            k_layer, v_layer, kw = layer_call(layer)
+            ref32 = flash_attention_ref(q.float(), k_layer.float(), v_layer.float(), **kw)
+            held[layer] = bf16_held(flash_attention(q, k_layer, v_layer, **kw), ref32)
+            del ref32
+        require(held[0][2] and held[1][2], f"[19d] flash == plain in f32 at depth {depth}, "
+                "local and global layer, at phase 7's bf16 check")
+        k_layer, v_layer, kw = layer_call(1)
+        # the calls are queued behind ~0.5 ms of spin each: a call this
+        # short takes less device than host time (up to ~0.12 ms a flash
+        # call), and unqueued events would time the host
+        host = []
+        flash_ms = cuda_ms(lambda: flash_attention(q, k_layer, v_layer, **kw), 50,
+                           queued=True, spin=1e6, host=host)
+        mask = (torch.arange(k_layer.shape[1], device="cuda") <= depth)[None, None, None, :]
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k_layer.transpose(1, 2), v_layer.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True), 20, queued=True, spin=1e6)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(q, k_layer, v_layer, **kw), 20,
+                           queued=True, spin=1e6)
+        one_bound = attn_bound_ms(bb, 1, depth + 1, 8, 4, 256, 2, BF16_FLOPS, causal=False)[0]
+        s = prof["split"]
+        total = sum(s.values())
+        print(f"# [19d profile {label}] device ms per step: flash {s['flash']:.4f}, matmuls "
+              f"{s['matmul']:.4f}, rest {s['rest']:.4f} (total {total:.4f}) in a "
+              f"{prof['span']:.4f} ms span under the profiler; idle share {prof['idle']:.3f}; "
+              f"flash {prof['flash_call']:.4f} ms a call against a mean bound of "
+              f"{np.mean(bounds):.4f} ms (bytes, {min(keys)}-{max(keys)} visible keys)")
+        print(f"# [19d layers {label}] flash == plain in f32: local max |err| "
+              f"{held[0][0]:.3e}, RMS err / RMS {held[0][1]:.3e}; global {held[1][0]:.3e}, "
+              f"{held[1][1]:.3e} (phase 7's bf16 check, held)")
+        print(f"# [19d global layer {label}] ms per call, queued: flash {flash_ms:.4f} (bound "
+              f"{one_bound:.4f} ms, "
+              f"bytes, {depth + 1} keys; host {host[0]:.1f} us a call), plain {plain_ms:.4f} "
+              f"ms, sdpa on the same tensors {sdpa_ms:.4f} ms")
+        print(f"# [19d host {label}] self CPU ms per step (calls): " + "; ".join(
+            f"{k} {ms:.3f} ({n})" for k, (ms, n) in prof["host"]))
+        print(f"# [19d trace {label}] " + trace_line(prof["per_kernel"], 1.0 - prof["idle"]))
+        out[f"profile_{label[0]}"] = dict(flash_call=prof["flash_call"], flash=flash_ms,
+                                          bound=one_bound, sdpa=sdpa_ms, plain=plain_ms,
+                                          host_us=host[0])
+    print(f"# [19d] {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1951,6 +2463,26 @@ def main() -> int:
     kernel["launches_guidelines"] = phase_guidelines(torch)
     kernel["launches_fleet"] = phase_fleet(torch)
     print(f"# [16-17] {time.perf_counter() - t:.2f} s")
+    # the model zoo's serving path: every smoke architecture, then
+    # gemma2-2b at full width; counts reset before each run they read
+    t = time.perf_counter()
+    reset_flash_counts()
+    smoke = phase_model_smoke(torch)
+    full = phase_gemma2_full(torch)
+    flash["launches_serve"] = smoke["tf32x3"] + full["a"]["tf32x3"]
+    flash_bf16["launches_serve"] = full["b"]["wgmma_bf16"]
+    # each instance at the serving path's own shapes: f32 at 19a's global
+    # layer (S 8192), bf16 at 19d's depth-8192 decode call
+    f32_call = full["f32_calls"]["global"]
+    flash.update(serve_ms=f32_call["ms"], serve_bound_ms=f32_call["bound_ms"],
+                 serve_plain_ms=f32_call["plain_ms"], serve_library_ms=f32_call["library_ms"])
+    flash_bf16.update(serve_ms=full["profile_c"]["flash"],
+                      serve_bound_ms=full["profile_c"]["bound"],
+                      serve_plain_ms=full["profile_c"]["plain"],
+                      serve_library_ms=full["profile_c"]["sdpa"])
+    require(flash["launches_serve"] > 0 and flash_bf16["launches_serve"] > 0,
+            "the serving path launched both flash instances")
+    print(f"# [18-19] {time.perf_counter() - t:.2f} s")
     print(json.dumps({"kernels": [kernel, flash, flash_bf16, ssd, ssd_bf16]}))
     print(f"# total {time.perf_counter() - t0:.1f} s")
     print(smi())

@@ -359,6 +359,18 @@ def grow_paths_for_reads(clocks, start_max, end_max) -> None:
         clk._path.ensure(b)
 
 
+def _exclusive_cumsum(e: torch.Tensor) -> torch.Tensor:
+    """``[0, e0, e0 + e1, ...]`` (length ``len(e)``), summed in order on
+    the host. CUDA's one-dimensional ``torch.cumsum`` (CUB's decoupled
+    look-back) associates float sums in an order that changes from run to
+    run: on the card it broke the fused engine's bit-equality with the
+    per-epoch engine in about one epoch in twelve (1-ulp differences in a
+    few dozen of 20 000 times). numpy's sequential sum is the same on
+    every run, on either device's tensors."""
+    host = np.concatenate([[0.0], np.cumsum(e[:-1].cpu().numpy())])
+    return torch.from_numpy(host).to(e.device)
+
+
 def _window(durations, gen, t0, off, skew, scale, slope, intercept, init_t,
             rank_imbalance, start_time, win_size, walk=None):
     """The per-epoch window over the whole ``(n, p)`` grid, float64.
@@ -382,8 +394,7 @@ def _window(durations, gen, t0, off, skew, scale, slope, intercept, init_t,
     span = durations[:, None] * _imbalance(gen, n, p, rank_imbalance, dev)
     e = span.amax(dim=1)
     dmax = deadline_true.amax(dim=1)
-    C = torch.cat([torch.zeros(1, dtype=_F64, device=dev),
-                   torch.cumsum(e[:-1], dim=0)])
+    C = _exclusive_cumsum(e)
     all_in = C + torch.clamp_min(torch.cummax(dmax - C, dim=0).values,
                                  t0.max())
     end = all_in[:, None] + span

@@ -303,3 +303,69 @@ def test_ssd_scan_kernel_at_mamba2_widths(dtype, s):
     yr = ssd_chunked(x, dta, B, C, 64)[0]
     err = ((y.float() - yr.float()).abs().max() / yr.float().abs().max()).item()
     assert err < bound, (s, dtype, err)
+
+
+@pytest.mark.cuda
+def test_model_attention_runs_the_flash_kernels():
+    """The model's attention on the card goes through the hand-written
+    kernels: gemma2's smoke model in f32 launches ``tf32x3`` once per layer
+    and gives the CPU's logits within 1e-4 of max |logit| (same weights,
+    moved); a bf16 decode call at head dim 256 launches ``wgmma_bf16``; a
+    head dim the kernels are not built for (112, zamba2-7b's) raises."""
+    _need_gpu("flash_attention")
+    import copy
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.attention import attention_op
+
+    cfg = get_smoke("gemma2-2b")
+    cpu = init_params(cfg, device="cpu", seed=0)
+    card = copy.deepcopy(cpu).to("cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32)))
+    before = dict(flash_attention.launches_by_instance)
+    logits, _ = forward(cfg, card, toks.cuda())
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_instance["tf32x3"] == before["tf32x3"] + cfg.n_layers
+    want, _ = forward(cfg, cpu, toks)
+    err = ((logits.cpu() - want).abs().max() / want.abs().max()).item()
+    assert err <= 1e-4, err
+    q = torch.randn(2, 1, 8, 256, device="cuda").to(torch.bfloat16)
+    k = torch.randn(2, 64, 4, 256, device="cuda").to(torch.bfloat16)
+    attention_op(q, k, k, causal=False, q_offset=63, kv_len=64, window=4096)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_instance["wgmma_bf16"] == before["wgmma_bf16"] + 1
+    z = torch.zeros(1, 4, 2, 112, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        attention_op(z, z, z)
+
+
+@pytest.mark.cuda
+def test_fused_engine_equals_per_epoch_on_the_card_every_time():
+    """The fused engine's records equal the per-epoch engine's bit for bit
+    on the card, trial after trial: the window's prefix sum is taken in a
+    fixed order (CUDA's one-dimensional cumsum is not repeatable, and
+    broke this in about one epoch in twelve)."""
+    _need_gpu("sim_scan")
+    import copy
+
+    from repro_torch.core import SimNet, make_op, make_sync
+    from repro_torch.simengine import run_windowed_epochs_torch, run_windowed_torch
+
+    def epochs(trial):
+        out = []
+        for e in range(4):
+            net = SimNet(16, seed=7 + 1000 * e + 97 * trial)
+            sync = make_sync("hca", n_fitpts=20, n_exchanges=5).synchronize(net)
+            out.append((net, sync, make_op("allreduce")))
+        return out
+
+    for trial in range(12):
+        live = epochs(trial)
+        fused_live = copy.deepcopy(live)
+        per_epoch = [run_windowed_torch(*c, 4096, 20_000, 400e-6, device="cuda") for c in live]
+        fused = run_windowed_epochs_torch(*map(list, zip(*fused_live)), 4096, 20_000,
+                                          400e-6, device="cuda")
+        for (net_u, _, _), (net_f, _, _), u, f in zip(live, fused_live, per_epoch, fused):
+            assert np.array_equal(u.times, f.times), trial
+            assert np.array_equal(u.errors, f.errors) and np.array_equal(net_u.t, net_f.t)

@@ -1,9 +1,12 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package ``repro``, checked statically over the
-sources and at run time in a subprocess where both are blocked (a
-simulated campaign, a kernel guideline campaign, a two-cell factor sweep,
-a drift audit and a two-cell in-process fleet under soft crashes, on the
-CPU)."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``examples/serve_lm_torch.py`` import neither JAX nor the JAX package
+``repro``, checked statically over the sources and at run time in a
+subprocess where both are blocked (a simulated campaign, a kernel
+guideline campaign, a two-cell factor sweep, a drift audit, a two-cell
+in-process fleet under soft crashes, and the model zoo's serving path:
+``repro_torch.configs``, ``repro_torch.models`` and
+``repro_torch.launch`` on every smoke architecture, then the serve
+example, on the CPU)."""
 
 import ast
 import os
@@ -15,7 +18,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py"]
 BLOCKED = ("jax", "jaxlib", "repro")
 
 
@@ -91,16 +94,47 @@ fleet = FleetScheduler(sweep_spec, sweep_backend, store,
                                                     within_calls=1))).run()
 assert len(fleet.cells) == 2 and not fleet.quarantined
 assert fleet.fleet["n_failed_attempts"] == 2
+
+import runpy
+import torch
+from repro_torch.configs import ARCHS, get_smoke
+from repro_torch.launch import make_decode_step, make_prefill_step
+from repro_torch.models import init_cache, init_params, prefill
+from repro_torch.models.lm import encode
+
+n_archs = 0
+for arch in ARCHS:
+    cfg = get_smoke(arch)
+    model = init_params(cfg, device="cpu", seed=0)
+    toks = torch.randint(0, cfg.vocab_size, (1, 8))   # a multiple of the SSM chunk
+    batch = {"tokens": toks}
+    if cfg.frontend == "vision":
+        batch["embeds"] = torch.randn(1, cfg.frontend_tokens, cfg.d_model)
+    if cfg.frontend == "audio":
+        batch["memory"] = encode(cfg, model, torch.randn(1, cfg.frontend_tokens, cfg.d_model))
+    logits = make_prefill_step(cfg)(model, batch)
+    _, cache = prefill(cfg, model, toks[:, :4], memory=batch.get("memory"), max_len=6)
+    step, _ = make_decode_step(cfg)(model, cache, dict(batch, tokens=toks[:, 4:5]))
+    assert logits.shape == (1, 8, cfg.vocab_size) and bool(torch.isfinite(step).all())
+    n_archs += 1
+
+sys.argv = ["serve_lm_torch.py", "--device", "cpu", "--batch", "2", "--prompt-len", "4",
+            "--tokens", "6"]
+runpy.run_path(EXAMPLE, run_name="__main__")
+
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not loaded, loaded
 print("ok", len(res.records), report.n_measured, len(sweep.cells), len(audit.cells),
-      len(fleet.cells))
+      len(fleet.cells), n_archs)
 """
 
 
 def test_port_runs_with_jax_and_reference_blocked():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
-                          capture_output=True, text=True, timeout=120)
+    example = ROOT / "examples" / "serve_lm_torch.py"
+    proc = subprocess.run([sys.executable, "-c", f"EXAMPLE = {str(example)!r}\n" + _BLOCKED_RUN],
+                          env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip() == "ok 4 8 2 1 2"
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0].startswith("prefill: 2x4 tokens in ")          # the serve example
+    assert lines[-1] == "ok 4 8 2 1 2 10"
