@@ -4,8 +4,9 @@ this checkout, hold each against its plain PyTorch version on the card,
 drive the paths (the simulated measurement campaign, the kernel A/B
 campaign, on random-walk clocks campaigns and the barrier scheme, the
 factor sweeps, drift audit and calibration over the campaign, the
-performance-guideline family, the fault-tolerant sweep fleet and the model
-zoo's serving path) at sizes users run, and check what comes out.
+performance-guideline family, the fault-tolerant sweep fleet, the model
+zoo's serving path and its training path) at sizes users run, and check
+what comes out.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -46,7 +47,11 @@ Phases, each of which raises (exit code 1) on failure:
      instances' layout probes; each call checked to have run through the
      instance its type and head dim select; then the f32 and bf16 times
      at gemma2-2b widths (S = T = 4096, causal) beside the bound, the
-     plain version and ``scaled_dot_product_attention``;
+     plain version and ``scaled_dot_product_attention``; then the head
+     dims the kernels run zero-padded, zamba2-7b's attention (32/32
+     heads, D 112) and deepseek-v2's MLA (128 heads, D 192) at S = T =
+     4096, each held against the plain version in f32 (f32 within 1e-5
+     of max, bf16 at phase 7's bf16 check) and timed the same way;
   8. ``ssd_scan`` against its plain version over the reference's grid,
      head dims that are not multiples of the p-tile, ragged chunks and the
      sequential recurrence, f32 and bf16; then its times at mamba2-1.3b
@@ -130,13 +135,29 @@ Phases, each of which raises (exit code 1) on failure:
      host ops), and one local and one global layer's flash call on (c)'s
      cache, each held at phase 7's bf16 check, the global one timed alone
      beside its bound and SDPA on the same tensors;
- 20. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
+ 20. the training path: (a) every ``SMOKE`` architecture's train step
+     (``impl="ref"``, remat) on the card and the CPU from the same
+     weights, two steps, TF32 off: loss, gradient norm and every updated
+     weight within 1e-4; (b) ``examples/train_lm_torch.py``'s ``small``
+     preset, clean and with a failure at step 45 (async checkpoints, one
+     restart, final losses within 1e-4), then
+     ``examples/compressed_dp_torch.py``; (d) gemma2-2b at full width in
+     f32, B 1, S 1024: the gradient with remat equal to the one without
+     within 1e-5 of each weight's max; (c) gemma2-2b in bf16, B 1, S 8192,
+     remat, ``ce_chunk`` 8, 2 warm-up and 8 timed steps on one batch: the
+     loss down by 10%, the gradient guard's refusal, the step's time with
+     its CI, tokens/s, bound, peak memory and a profile (idle share,
+     device time by class), then a prefill step on the trained weights;
+ 21. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
      once per type; ``sim_scan``'s entry counts its launches on the main
      path, on the two paths of phases 11 and 12, on the three of phases
      13-15 and on phases 16 and 17 (this process only); the two flash
      entries add ``launches_serve``, their launches on the serving path
      (phases 18 and 19a for ``tf32x3``, 19b for ``wgmma_bf16``), and the
-     bf16 entry its time at 19d's depth-8192 decode call.
+     bf16 entry its time at 19d's depth-8192 decode call; both add
+     ``launches_train``, their launches in phase 20's train steps (0: the
+     train step runs the plain attention, held so), and ``padded``, phase
+     7's padded calls.
 
 Every timed kernel in phases 3, 7 and 8 has ``nvidia-smi``'s SM clock
 (now and max), power draw and temperature, sampled right before and after
@@ -688,6 +709,80 @@ def visible_keys(torch, s, t, q_offset=0, causal=True, window=None, kv_len=None,
     return vis, ~vis.any(dim=1)
 
 
+#: Head dims the flash kernels run zero-padded to the next built one, at
+#: full width: zamba2-7b's attention (src/repro/configs/zamba2_7b.py: 32
+#: query and 32 KV heads of 112) and deepseek-v2's MLA
+#: (src/repro/configs/deepseek_v2_236b.py: 128 heads of 128 + 64 = 192,
+#: keys decompressed per head). B 1, S = T = 4096, causal.
+PADDED_ATTN = {"zamba2-7b d112": dict(h=32, hkv=32, d=112),
+               "deepseek-v2 MLA d192": dict(h=128, hkv=128, d=192)}
+
+
+def plain_by_heads(torch, q, k, v, heads=16):
+    """The plain version in f32 on q, k, v's values, 16 heads at a time
+    (one head per KV head here), so that its logits take ~1 GB, not 8.6."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    return torch.cat([flash_attention_ref(q[:, :, i:i + heads].float(),
+                                          k[:, :, i:i + heads].float(),
+                                          v[:, :, i:i + heads].float())
+                      for i in range(0, q.shape[2], heads)], dim=2)
+
+
+def flash_padded(torch, rnd) -> dict:
+    """Phase 7's padded calls: each :data:`PADDED_ATTN` width in f32 (held
+    within ``F32_LAYER_BOUND`` of its max, 19a's bound) and bf16 (phase
+    7's bf16 check, :func:`bf16_held`) against the plain version in f32,
+    each one padded launch, timed beside its bound (the unpadded work),
+    the plain version and SDPA on the same tensors."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import padded_head_dim
+
+    b, s = 1, 4096
+    rows = {}
+    for name, w in PADDED_ATTN.items():
+        h, hkv, d = w["h"], w["hkv"], w["d"]
+        for dt, peak in ((torch.float32, TF32_FLOPS / 3), (torch.bfloat16, BF16_FLOPS)):
+            q, k, v = (rnd(b, s, n, d, dtype=dt) for n in (h, hkv, hkv))
+            padded = flash_attention.launches_padded
+            out = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            require(flash_attention.launches_padded == padded + 1 and out.shape == q.shape,
+                    f"[7 padded] {name} {dt}: one padded launch, output (B, S, H, {d})")
+            ref32 = plain_by_heads(torch, q, k, v)
+            if dt == torch.float32:
+                err, rms = rel_err(out, ref32), None
+                require(err <= F32_LAYER_BOUND, f"[7 padded] {name} f32: kernel == plain at "
+                        f"{err:.3e} <= {F32_LAYER_BOUND} of max |out|")
+            else:
+                err, rms, held = bf16_held(out, ref32)
+                require(held, f"[7 padded] {name} bf16: phase 7's bf16 check (max |err| "
+                        f"{err:.3e}, RMS err / RMS {rms:.3e})")
+            del out, ref32
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            ms, clk = clocked(lambda: cuda_ms(lambda: flash_attention(q, k, v), 10))
+            plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), 2)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 10)
+            bound_ms, bound_by, flops, moved = attn_bound_ms(b, s, s, h, hkv, d,
+                                                             q.element_size(), peak)
+            rows.setdefault(dt, {})[name] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_err=err, launches=1)
+            print(f"# [7 padded] {name} -> {padded_head_dim(d)}, B 1, H {h}/{hkv}, "
+                  f"S = T = 4096 causal, {str(dt)[6:]}: kernel == plain in f32 at "
+                  + (f"{err:.3e} of max |out|" if rms is None else
+                     f"max |err| {err:.3e}, RMS err / RMS {rms:.3e}")
+                  + f"; kernel {ms:.4f} ms {clk}, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB), plain {plain_ms:.4f} ms, "
+                  f"sdpa {lib_ms:.4f} ms")
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+    return rows
+
+
 def phase_flash(torch) -> tuple[dict, dict]:
     import torch.nn.functional as F
 
@@ -924,6 +1019,7 @@ def phase_flash(torch) -> tuple[dict, dict]:
               f"{r['flops'] / r['library_ms'] / 1e9:.2f} TFLOP/s; max |err| {r['err']:.3e}"
               + (f", RMS err / RMS {r['rms']:.3e}" if r["rms"] is not None else ""))
         print(f"# [7 trace] {name}: " + trace_line(*r["trace"]))
+    padded = flash_padded(torch, rnd)
     common = dict(route="cuda", replaces="src/repro/kernels/flash_attention/kernel.py:113")
     tf32 = dict(name="flash_attention", dtype="float32",
                 source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_tf32.cu",
@@ -933,6 +1029,7 @@ def phase_flash(torch) -> tuple[dict, dict]:
                  source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
                  max_abs_err=bf16_err, **common,
                  **{k: bf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    tf32["padded"], wgmma["padded"] = padded[torch.float32], padded[torch.bfloat16]
     return tf32, wgmma
 
 
@@ -2192,8 +2289,6 @@ def phase_gemma2_full(torch) -> dict:
     9216, vocab 256000, window 4096 on alternating layers, soft-caps
     50/30), weights from a seeded generator on the card. Returns the flash
     launches of (a) and (b)."""
-    import importlib.util
-
     import numpy as np
     import torch.nn.functional as F
 
@@ -2262,10 +2357,7 @@ def phase_gemma2_full(torch) -> dict:
     t0 = time.perf_counter()
     model = init_params(cfg, seed=20)
     wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    spec = importlib.util.spec_from_file_location(
-        "serve_lm_torch", ROOT / "examples" / "serve_lm_torch.py")
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("serve_lm_torch")
     torch.cuda.reset_peak_memory_stats()
     reset_flash_counts()
     r = example.serve(cfg, model, batch=4, prompt_len=128, tokens=32, seed=20)
@@ -2423,6 +2515,393 @@ def phase_gemma2_full(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the training path
+# ---------------------------------------------------------------------------
+
+#: The train step's optimizer in 20(a), as in ``tests/test_torch_train.py``:
+#: a learning rate that moves every weight visibly, and ``eps`` well above
+#: the gradients' rounding noise, so the first steps' ``g / (|g| + eps)``
+#: is no sign test where a gradient is ~0 (there card and CPU may round a
+#: near-zero gradient to opposite signs).
+SMOKE_TRAIN_OPT = dict(lr=1e-2, warmup_steps=1, weight_decay=0.1, eps=1e-2)
+#: 20(c)'s learning rate, with one warmup step. At the 3e-3 of the
+#: reference's loss-decrease test (tests/test_models.py::
+#: test_train_step_reduces_loss, a smoke model) gemma2-2b's loss on one
+#: batch of 8192 tokens fell 3.4% over the 8 timed steps, short of that
+#: test's 10%: past the first two steps it must memorise the batch.
+GEMMA2_TRAIN_LR = 1e-2
+
+
+@contextlib.contextmanager
+def no_tf32(torch):
+    """TF32 off for matmuls and convolutions, f32 matmuls at "highest"."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved[:2]
+        torch.set_float32_matmul_precision(saved[2])
+
+
+def leaf_errs(got: dict, want: dict) -> dict:
+    """:func:`rel_err` per tensor, ``got``'s moved to ``want``'s device."""
+    return {name: rel_err(got[name].detach().to(w.device), w.detach())
+            for name, w in want.items()}
+
+
+def phase_train_smoke(torch) -> dict:
+    """20(a): every smoke architecture's train step (``impl="ref"``, remat
+    on) on the card and the CPU from the same weights, two steps on the
+    same batches, TF32 off: the loss and the gradient norm of each step,
+    and every updated weight, within 1e-4 of max |CPU| (phase 18's bound).
+    Returns the flash launches of the card's steps."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, get_smoke
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import init_train_state, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import encode
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.trainer import to_device
+
+    t0 = time.perf_counter()
+    worst_all, launched = 0.0, 0
+    with no_tf32(torch):
+        for i, arch in enumerate(ARCHS):
+            t = time.perf_counter()
+            cfg = get_smoke(arch)
+            cpu = init_train_state(init_params(cfg, device="cpu", seed=30 + i))
+            card = init_train_state(copy.deepcopy(cpu["params"]).to("cuda"))
+            step = make_train_step(cfg, OptimizerConfig(**SMOKE_TRAIN_OPT))
+            data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                          global_batch=2, seed=30 + i))
+            front = None
+            if cfg.frontend:
+                rng = np.random.default_rng(30 + i)
+                front = torch.from_numpy(rng.normal(0, 1, (2, cfg.frontend_tokens, cfg.d_model))
+                                         .astype(np.float32))
+            metrics = {}
+            for k in range(2):
+                for name, state in (("cpu", cpu), ("card", card)):
+                    dev = state["params"].embed.device
+                    batch = to_device(data.batch_at(k), dev)
+                    if cfg.frontend == "vision":
+                        batch["embeds"] = front.to(dev)
+                    if cfg.frontend == "audio":     # an input, as in the reference
+                        with torch.no_grad():
+                            batch["memory"] = encode(cfg, state["params"], front.to(dev))
+                    before = sum(flash_counts().values())
+                    _, m = step(state, batch)
+                    launched += sum(flash_counts().values()) - before
+                    metrics[name, k] = {key: m[key].item() for key in ("loss", "grad_norm")}
+            scalar = max(abs(metrics["card", k][key] - metrics["cpu", k][key])
+                         / abs(metrics["cpu", k][key]) for k in range(2)
+                         for key in ("loss", "grad_norm"))
+            errs = leaf_errs(dict(card["params"].named_parameters()),
+                             dict(cpu["params"].named_parameters()))
+            name, worst = max(errs.items(), key=lambda kv: kv[1])
+            require(all(np.isfinite(v) for m in metrics.values() for v in m.values()),
+                    f"[20a] {arch}: finite loss and gradient norm")
+            require(scalar <= 1e-4, f"[20a] {arch}: loss and grad norm card == CPU, "
+                    f"{scalar:.3e} <= 1e-4")
+            require(worst <= 1e-4, f"[20a] {arch}: every updated weight card == CPU, worst "
+                    f"{name} {worst:.3e} <= 1e-4 of its max")
+            worst_all = max(worst_all, worst, scalar)
+            print(f"# [20a train smoke] {arch}: 2 steps card == CPU, loss "
+                  f"{metrics['cpu', 0]['loss']:.4f} -> {metrics['cpu', 1]['loss']:.4f}, loss and "
+                  f"grad norm within {scalar:.2e}, worst weight {name} {worst:.2e} of its max "
+                  f"({len(errs)} tensors); {time.perf_counter() - t:.2f} s")
+    require(launched == 0, "[20a] the train steps launched no flash kernel (impl='ref')")
+    print(f"# [20a] all {len(ARCHS)} smoke train steps card == CPU within 1e-4 (worst "
+          f"{worst_all:.2e}); flash launches {launched}; {time.perf_counter() - t0:.2f} s")
+    return dict(worst=worst_all, launches=launched)
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module, its ``__main__`` block not run."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_trainer(torch) -> dict:
+    """20(b): ``examples/train_lm_torch.py``'s ``small`` preset on the card
+    (~5 M parameters, batch 8, 128 tokens), a clean run and one with a
+    failure injected at step 45 (restart from the step-40 checkpoint),
+    each with async checkpoints in a temporary directory: one restart and
+    final losses within 1e-4 (the bound of tests/test_runtime.py); then
+    ``examples/compressed_dp_torch.py`` (a wire reduction above 3x and a
+    falling loss, which it checks itself)."""
+    import tempfile
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    train = load_example("train_lm_torch")
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--preset", "small", "--steps", "60", "--device", "cuda"]
+        clean = train.main(common + ["--ckpt-dir", f"{tmp}/clean"])
+        faulty = train.main(common + ["--ckpt-dir", f"{tmp}/faulty", "--fail-at", "45"])
+    diff = abs(clean["losses"][-1] - faulty["losses"][-1])
+    require(clean["restarts"] == 0 and faulty["restarts"] == 1,
+            f"[20b] restarts {clean['restarts']}, {faulty['restarts']}: want 0, 1")
+    require(diff <= 1e-4, f"[20b] final loss after the restart == clean run's, |diff| "
+            f"{diff:.3e} <= 1e-4")
+    times = np.array(clean["step_times"][5:])
+    print(f"# [20b trainer] small preset, 60 steps: loss {clean['losses'][0]:.4f} -> "
+          f"{clean['losses'][-1]:.4f}; failure at 45: restarts {faulty['restarts']}, final loss "
+          f"{faulty['losses'][-1]:.6f} vs clean {clean['losses'][-1]:.6f} (|diff| {diff:.3e}); "
+          f"step {np.median(times) * 1e3:.2f} ms median (host clock, fenced); stragglers "
+          f"{clean['stragglers']}; {time.perf_counter() - t0:.2f} s")
+    t = time.perf_counter()
+    dp = load_example("compressed_dp_torch").main(["--device", "cuda"])
+    print(f"# [20b compressed dp] two pods in one process: {dp['reduction']:.2f}x wire "
+          f"reduction, loss {dp['comp_losses'][0]:.4f} -> {dp['comp_losses'][-1]:.4f} "
+          f"(fp32 {dp['base_losses'][-1]:.4f}), Wilcoxon p {dp['p_value']:.3f}; "
+          f"{time.perf_counter() - t:.2f} s")
+    return dict(diff=diff, reduction=dp["reduction"])
+
+
+def train_bound(cfg, b, s, n_params) -> tuple[float, str, float, float]:
+    """The least time for one remat train step (``ce_chunk`` checkpointed
+    too) of ``cfg`` at batch ``b``, length ``s``: ``(bound_ms, bound_by,
+    flops, bytes)``. Operations: the matmuls of the weights, 2 per weight
+    and token forward, 4 backward, 2 more for the recompute (blocks and
+    head), and attention's two products over the (q, k) pairs the causal
+    mask and each layer's window leave, times 4 the same way; bytes: the
+    optimizer's read of weights, gradients and both f32 moments and its
+    write of weights and moments."""
+    matmul = 8.0 * b * s * n_params     # the tied embedding counted as the unembedding
+    attn = 0.0
+    for i in range(cfg.n_layers):
+        window = None if cfg.is_global_layer(i) else cfg.window
+        pairs = sum(min(q + 1, window or s) for q in range(s))
+        attn += 4.0 * b * cfg.n_heads * cfg.hd * pairs * 4.0
+    flops = matmul + attn
+    nbytes = n_params * (2 + 2 + 4 + 4 + 2 + 4 + 4)
+    return (*bound(flops, BF16_FLOPS, nbytes), flops, nbytes)
+
+
+def profile_train(torch, step, state, batch, reps=2) -> dict:
+    """``torch.profiler`` over ``reps`` train steps (after the caller's
+    warm-up): device busy and idle share of the steps' CUDA-event span,
+    and device ms per step by class: matmuls (by kernel name), the plain
+    attention's other operations (the ops on its 5-d (B, Hkv, G, S, T)
+    logits, forward, recompute and backward, by input shape), the
+    optimizer (the kernels under ``adamw_update``) and the rest."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.launch import steps as steps_module
+
+    adamw = steps_module.adamw_update
+
+    def traced_adamw(*args, **kw):
+        with record_function("adamw_update"):
+            return adamw(*args, **kw)
+
+    s = batch["tokens"].shape[1]
+    steps_module.adamw_update = traced_adamw
+    try:
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            start.record()
+            for _ in range(reps):
+                step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+    finally:
+        steps_module.adamw_update = adamw
+    span = start.elapsed_time(end)
+
+    def dev(e, attr):
+        return getattr(e, attr.replace("cuda", "device"), None) or getattr(e, attr, 0.0)
+
+    total = matmul = 0.0
+    for e in prof.key_averages():
+        # the range's own span on the device timeline is not a kernel
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.key != "adamw_update":
+            us = dev(e, "self_cuda_time_total")
+            total += us
+            if MATMUL.search(e.key):
+                matmul += us
+    attn = opt = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        if e.key == "adamw_update":
+            opt += dev(e, "cuda_time_total")
+        elif not MATMUL.search(e.key) and e.key not in ("aten::bmm", "aten::mm", "aten::einsum") \
+                and any(len(sh) == 5 and sh[-1] == s for sh in (e.input_shapes or [])):
+            attn += dev(e, "self_cuda_time_total")
+    per = 1e-3 / reps
+    split = dict(matmul=matmul * per, attention_other=attn * per, optimizer=opt * per)
+    split["rest"] = total * per - sum(split.values())
+    busy = total * 1e-3 / span if span else 0.0
+    return dict(split=split, busy=busy, idle=1.0 - busy, span_ms=span / reps,
+                device_ms=total * per)
+
+
+def phase_gemma2_train(torch) -> dict:
+    """20(c)-(d): gemma2-2b at full width (weights from a seeded generator
+    on the card). (d) f32, B 1, S 1024: the gradient with ``remat=True``
+    and ``remat=False`` on the same weights, every weight's within 1e-5 of
+    its max. (c) bf16, B 1, S 8192 (past the 4096 window), remat on,
+    ``ce_chunk`` 8, one fixed ``SyntheticLM`` batch, AdamW at
+    ``GEMMA2_TRAIN_LR`` with one warmup step and weight decay 0.1: 2
+    warm-up and 8 timed steps, loss and gradient norm finite at every step
+    and the loss down by at least 10% over the timed steps (the
+    reference's criterion), the gradient guard raising for ``impl="auto"``,
+    the Tukey-filtered step time with its CI, tokens/s, peak memory, the
+    step's bound, a profile of 2 steps; then serving on the trained,
+    trainable weights (``make_prefill_step`` through the flash kernel)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.stats import mean_confidence_interval, tukey_filter
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import init_train_state, make_prefill_step, make_train_step
+    from repro_torch.models import init_params, loss_fn, num_params
+    from repro_torch.models import tuning
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.trainer import to_device
+
+    cfg = get_config(GEMMA2)
+    out = {}
+
+    # (d) remat == no remat, f32, B 1, S 1024
+    t0 = time.perf_counter()
+    cfg32 = cfg.scaled(dtype="float32")
+    model = init_params(cfg32, device="cuda", seed=24).requires_grad_(True)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=1024, global_batch=1,
+                                  seed=24))
+    batch = to_device(data.batch_at(0), "cuda")
+    grads, losses = {}, {}
+    with no_tf32(torch):
+        for remat in (True, False):
+            loss, _ = loss_fn(cfg32, model, batch, remat=remat, impl="ref")
+            loss.backward()
+            losses[remat] = loss.item()
+            del loss, _     # the graph's leaf nodes hold the weights
+            grads[remat] = {n: p.grad for n, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)     # the dict keeps the tensors
+    errs = leaf_errs(grads[True], grads[False])
+    name, worst = max(errs.items(), key=lambda kv: kv[1])
+    require(all(torch.isfinite(g).all() for g in grads[True].values()),
+            "[20d] finite gradients")
+    require(worst <= 1e-5 and abs(losses[True] - losses[False]) <= 1e-5 * abs(losses[False]),
+            f"[20d] remat == no remat: worst weight {name} {worst:.3e} <= 1e-5 of its max, "
+            f"loss {losses[True]:.6f} vs {losses[False]:.6f}")
+    print(f"# [20d gemma2-2b f32 remat] B 1 S 1024: loss {losses[True]:.6f} (no remat "
+          f"{losses[False]:.6f}); gradient with remat == without within {worst:.3e} of each "
+          f"weight's max (worst {name}, {len(errs)} tensors, bound 1e-5); "
+          f"{time.perf_counter() - t0:.2f} s")
+    out["d"] = dict(worst=worst)
+    del model, grads, batch
+    torch.cuda.empty_cache()
+
+    # (c) bf16, B 1, S 8192
+    t0 = time.perf_counter()
+    s = 8192
+    model = init_params(cfg, device="cuda", seed=25)
+    n = num_params(model)
+    state = init_train_state(model)
+    batch = to_device(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                             global_batch=1, seed=25)).batch_at(0), "cuda")
+    tuning.set_tuning(ce_chunk=8)
+    try:
+        try:
+            loss_fn(cfg, model, batch, impl="auto")
+        except RuntimeError as e:
+            refused = "no backward pass" in str(e)
+        else:
+            refused = False
+        require(refused, "[20c] the flash kernel refuses a gradient (impl='auto', trainable "
+                "weights)")
+        step = make_train_step(cfg, OptimizerConfig(lr=GEMMA2_TRAIN_LR, warmup_steps=1,
+                                                    weight_decay=0.1))
+        reset_flash_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, times = [], [], []
+        for i in range(10):
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())            # fences the step
+            times.append(time.perf_counter() - t)
+            norms.append(m["grad_norm"].item())
+        peak = torch.cuda.max_memory_allocated()
+        launched = sum(flash_counts().values())
+        prof = profile_train(torch, step, state, batch)
+    finally:
+        tuning.reset_tuning()
+    timed = np.array(times[2:])
+    kept = tukey_filter(timed)
+    mean, lo, hi = mean_confidence_interval(kept)
+    bound_ms, bound_by, flops, nbytes = train_bound(cfg, 1, s, n)
+    sp = prof["split"]
+    print(f"# [20c gemma2-2b bf16 train] {n / 1e9:.3f} B parameters, B 1 S {s}, remat, "
+          f"ce_chunk 8, lr {GEMMA2_TRAIN_LR}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + "; grad norms " + ", ".join(f"{x:.3g}" for x in norms))
+    print(f"# [20c step] 8 timed steps (host clock, fenced by the loss): "
+          + ", ".join(f"{x:.4f}" for x in timed) + f" s; Tukey-filtered ({len(kept)} of 8) "
+          f"{mean:.4f} s [{lo:.4f}, {hi:.4f}] 95% CI, {s / mean:.1f} tokens/s; bound "
+          f"{bound_ms / 1e3:.4f} s by {bound_by} ({flops / 1e12:.1f} TFLOP at 989 TFLOP/s, "
+          f"{nbytes / 1e9:.1f} GB of optimizer traffic); peak "
+          f"{peak / 2**30:.2f} GiB; {time.perf_counter() - t0:.2f} s")
+    # the profiler records every op's shapes, which slows the host: the
+    # device time against the unprofiled step's wall is the step's own idle
+    # share
+    idle = 1.0 - prof["device_ms"] / (mean * 1e3)
+    print(f"# [20c profile, 2 steps] device {prof['device_ms']:.1f} ms a step in a "
+          f"{prof['span_ms']:.1f} ms span under the profiler: busy {prof['busy']:.3f}, idle "
+          f"{prof['idle']:.3f}; against the unprofiled step's {mean * 1e3:.1f} ms, idle "
+          f"{idle:.3f}; matmuls {sp['matmul']:.1f} ms, attention's other ops "
+          f"{sp['attention_other']:.1f} ms, optimizer {sp['optimizer']:.1f} ms, rest "
+          f"{sp['rest']:.1f} ms")
+    require(all(np.isfinite(losses + norms)), f"[20c] finite losses {losses} and norms {norms}")
+    require(losses[-1] <= 0.9 * losses[2], f"[20c] loss down >= 10% over the 8 timed steps: "
+            f"{losses[2]:.4f} -> {losses[-1]:.4f}")
+    require(launched == 0, "[20c] the train steps launched no flash kernel (impl='ref')")
+    out["c"] = dict(mean=mean, lo=lo, hi=hi, peak=peak, bound_ms=bound_ms, idle=idle,
+                    launches=launched)
+
+    # serving on the trained weights, which now require grad
+    reset_flash_counts()
+    logits = make_prefill_step(cfg)(model, {"tokens": batch["tokens"][:, :512]})
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(logits.float()).all())
+            and flash_counts()["wgmma_bf16"] == cfg.n_layers,
+            "[20c] a prefill step on the trainable weights runs the flash kernel under no_grad")
+    print(f"# [20c serve] prefill step of 512 tokens on the trained weights (requires_grad): "
+          f"finite logits, wgmma_bf16 launches {flash_counts()['wgmma_bf16']}")
+    del model, state, batch, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_training(torch) -> dict:
+    """Phase 20, the training path: (a) the smoke train steps card == CPU,
+    (b) the trainer and the compressed-DP example, (c)-(d) gemma2-2b at
+    full width. Returns the flash launches of the train steps (none: the
+    train step runs the plain attention)."""
+    t = time.perf_counter()
+    smoke = phase_train_smoke(torch)
+    phase_trainer(torch)
+    full = phase_gemma2_train(torch)
+    print(f"# [20] {time.perf_counter() - t:.2f} s")
+    return smoke["launches"] + full["c"]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -2483,6 +2962,10 @@ def main() -> int:
     require(flash["launches_serve"] > 0 and flash_bf16["launches_serve"] > 0,
             "the serving path launched both flash instances")
     print(f"# [18-19] {time.perf_counter() - t:.2f} s")
+    # the training path: the train step runs the plain attention under
+    # autograd, so it launches no flash kernel (counted, and held at 0)
+    reset_flash_counts()
+    flash["launches_train"] = flash_bf16["launches_train"] = phase_training(torch)
     print(json.dumps({"kernels": [kernel, flash, flash_bf16, ssd, ssd_bf16]}))
     print(f"# total {time.perf_counter() - t0:.1f} s")
     print(smi())

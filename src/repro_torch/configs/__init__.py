@@ -1,7 +1,7 @@
 """Architecture registry: the 10 assigned configs, a copy of the JAX
 package's ``repro.configs`` with the port's :class:`ModelConfig` (each
-record value for value the reference's; the paper's own suite,
-``paper.py``, is not ported yet).
+record value for value the reference's), and the paper's own suite
+(:mod:`repro_torch.configs.paper`, ``PaperSuite``).
 
 ``get_config(arch)`` / ``get_smoke(arch)`` resolve by id; ``ARCHS`` lists
 all ids. Shapes live in :mod:`repro_torch.configs.shapes`.

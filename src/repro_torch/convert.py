@@ -5,7 +5,10 @@ cluster and synchronizes it with the reference, then hands the same state
 to both engines; or it draws kernel inputs once and hands the same
 tensors to both packages (:func:`tensors_from_reference`); or it loads
 the reference's model weights into the port's ``LM``
-(:func:`params_from_reference`, and back with :func:`params_to_reference`). The reference's objects are read duck-typed, as plain
+(:func:`params_from_reference`, and back with :func:`params_to_reference`),
+or a whole train state, weights, AdamW moments and step count
+(:func:`train_state_from_reference`, :func:`train_state_to_reference`).
+The reference's objects are read duck-typed, as plain
 numbers and numpy arrays (clock parameters, ``net.t``, the RNG's
 ``bit_generator.state``, a clock's random-walk state and drift path, the
 sync models, an op's cost parameters and AR(1) state), so this module
@@ -30,7 +33,9 @@ from .core.simnet import ClockParams, NetParams, SimNet
 from .core.sync.base import SyncResult
 
 __all__ = ["clock_from_reference", "net_from_reference", "sync_from_reference", "op_from_reference",
-           "tensors_from_reference", "params_from_reference", "params_to_reference"]
+           "tensors_from_reference", "params_from_reference", "params_to_reference",
+           "named_to_reference", "train_state_tree", "load_train_state", "train_state_from_reference",
+           "train_state_to_reference"]
 
 
 def _fields(cls, obj) -> dict:
@@ -107,11 +112,14 @@ def op_from_reference(op) -> SimCollective:
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
-    a = np.array(a)                     # a writable copy: torch shares its memory
-    if a.dtype.name == "bfloat16":      # numpy has no bf16; f32 holds it exactly
-        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    if isinstance(a, torch.Tensor):
+        t = a
     else:
-        t = torch.from_numpy(a)
+        a = np.array(a)                 # a writable copy: torch shares its memory
+        if a.dtype.name == "bfloat16":  # numpy has no bf16; f32 holds it exactly
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
     if dtype is not None:
         t = t.to(dtype)
     return t.to(device)
@@ -133,7 +141,7 @@ def tensors_from_reference(arrays, device, dtype=None):
 
 
 # ---------------------------------------------------------------------------
-# Model weights
+# Model weights and train states
 # ---------------------------------------------------------------------------
 
 #: ``ModuleList`` children whose reference leaves carry a leading layer axis
@@ -146,42 +154,71 @@ def _take(tree: dict, j: int) -> dict:
     return {k: _take(v, j) if isinstance(v, dict) else v[j] for k, v in tree.items()}
 
 
-def _load(module, tree: dict, device, done: set, prefix: str) -> None:
+def _load(module, tree: dict, done: set, prefix: str, put) -> None:
+    """Walk the reference-layout ``tree`` against ``module``: for each leaf,
+    ``put(name, param, value)`` with the port's parameter name (as
+    ``named_parameters`` gives it), the parameter (None where the port has
+    none) and the leaf's value, one layer's slice of a stacked leaf."""
     for key, val in tree.items():
         name = f"{prefix}{key}"
         if key == "segments":
             if len(val) != len(module.segments):
-                raise ValueError(f"params_from_reference: {len(val)} segments, the "
-                                 f"port's plan has {len(module.segments)}")
+                raise ValueError(f"weights: {len(val)} segments, the port's plan "
+                                 f"has {len(module.segments)}")
             for i, (seg, sub) in enumerate(zip(module.segments, val)):
-                _load_stack(seg, sub, device, done, f"{name}.{i}.")
+                _load_stack(seg, sub, done, f"{name}.{i}.", put)
         elif key in _STACKED:
-            _load_stack(getattr(module, key), val, device, done, f"{name}.")
+            _load_stack(getattr(module, key), val, done, f"{name}.", put)
         elif isinstance(val, dict):
-            _load(getattr(module, key), val, device, done, f"{name}.")
+            _load(getattr(module, key), val, done, f"{name}.", put)
         else:
-            param = getattr(module, key, None)
-            t = _tensor(val, device, None)
-            if param is None or t.shape != param.shape or t.dtype != param.dtype:
-                want = None if param is None else (tuple(param.shape), param.dtype)
-                raise ValueError(f"params_from_reference: {name} is "
-                                 f"{(tuple(t.shape), t.dtype)}, the port has {want}")
-            param.copy_(t)
+            put(name, getattr(module, key, None), val)
             done.add(name)
 
 
-def _load_stack(modules, tree: dict, device, done: set, prefix: str) -> None:
+def _load_stack(modules, tree: dict, done: set, prefix: str, put) -> None:
     counts = {np.shape(a)[0] for a in _leaves(tree)}
     if counts != {len(modules)}:
-        raise ValueError(f"params_from_reference: {prefix} stacks {counts} layers, "
-                         f"the port has {len(modules)}")
+        raise ValueError(f"weights: {prefix} stacks {counts} layers, the port "
+                         f"has {len(modules)}")
     for j, m in enumerate(modules):
-        _load(m, _take(tree, j), device, done, f"{prefix}{j}.")
+        _load(m, _take(tree, j), done, f"{prefix}{j}.", put)
 
 
 def _leaves(tree: dict):
     for v in tree.values():
         yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def _load_all(model, tree: dict, put, what: str) -> None:
+    """:func:`_load` over the whole model; raises unless every weight was
+    set."""
+    done: set = set()
+    _load(model, tree, done, "", put)
+    missing = sorted(n for n, _ in model.named_parameters() if n not in done)
+    if missing:
+        raise ValueError(f"{what}: the tree sets no {missing}")
+
+
+def _into_params(device):
+    def put(name, param, val):
+        t = _tensor(val, device, None)
+        if param is None or t.shape != param.shape or t.dtype != param.dtype:
+            want = None if param is None else (tuple(param.shape), param.dtype)
+            raise ValueError(f"weights: {name} is {(tuple(t.shape), t.dtype)}, "
+                             f"the port has {want}")
+        param.copy_(t)
+    return put
+
+
+def _into(moments: dict, device):
+    def put(name, param, val):
+        t = _tensor(val, device, torch.float32)
+        if name not in moments or t.shape != moments[name].shape:
+            raise ValueError(f"moments: {name} is {tuple(t.shape)}, the port's "
+                             f"weight is {None if param is None else tuple(param.shape)}")
+        moments[name].copy_(t)
+    return put
 
 
 @torch.no_grad()
@@ -197,11 +234,7 @@ def params_from_reference(cfg, tree: dict, device="cuda"):
     from .models.lm import LM
 
     model = LM(cfg, device)
-    done: set = set()
-    _load(model, tree, device, done, "")
-    missing = sorted(n for n, _ in model.named_parameters() if n not in done)
-    if missing:
-        raise ValueError(f"params_from_reference: the tree sets no {missing}")
+    _load_all(model, tree, _into_params(device), "params_from_reference")
     return model
 
 
@@ -214,21 +247,41 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def _stack(trees: list) -> dict:
-    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-            else np.stack([t[k] for t in trees]) for k in trees[0]}
-
-
-def _dump(module) -> dict:
-    out = {name: _array(p) for name, p in module.named_parameters(recurse=False)}
+def _dump(module, leaf, prefix: str = "") -> dict:
+    """``module``'s weights in the reference's layout, each leaf
+    ``leaf(name, param)`` (a CPU tensor), layers stacked on a leading
+    axis."""
+    out = {name: leaf(f"{prefix}{name}", p)
+           for name, p in module.named_parameters(recurse=False)}
     for name, child in module.named_children():
         if name == "segments":
-            out[name] = [_stack([_dump(b) for b in seg]) for seg in child]
+            out[name] = [_stack([_dump(b, leaf, f"{prefix}{name}.{i}.{j}.")
+                                 for j, b in enumerate(seg)])
+                         for i, seg in enumerate(child)]
         elif name in _STACKED:
-            out[name] = _stack([_dump(m) for m in child])
+            out[name] = _stack([_dump(m, leaf, f"{prefix}{name}.{j}.")
+                                for j, m in enumerate(child)])
         else:
-            out[name] = _dump(child)
+            out[name] = _dump(child, leaf, f"{prefix}{name}.")
     return out
+
+
+def _stack(trees: list) -> dict:
+    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+            else torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A copy on the host: the caller may keep it while the weight moves."""
+    return t.detach().to("cpu", copy=True)
 
 
 def params_to_reference(model) -> dict:
@@ -236,4 +289,58 @@ def params_to_reference(model) -> dict:
     the reference's pytree (nested dicts and lists of numpy arrays, layers
     stacked on a leading axis). bf16 weights come back as ``ml_dtypes``'
     bfloat16, the type the reference's arrays carry."""
-    return _dump(model)
+    return _map(_array, _dump(model, lambda name, p: _host(p)))
+
+
+def named_to_reference(model, named: dict) -> dict:
+    """Tensors keyed by ``model``'s parameter names (its gradients, an
+    optimizer's moments) in the reference's layout of the weights, layers
+    stacked on a leading axis; every leaf a copy on the host."""
+    return _dump(model, lambda name, p: _host(named[name]))
+
+
+def train_state_tree(state: dict) -> dict:
+    """A train state (``{"params": model, "opt": {"m", "v", "count"}}``)
+    in the reference's layout: ``{"opt": {"count", "m", "v"}, "params"}``,
+    the moments shaped as the weights, layers stacked on a leading axis,
+    every leaf a copy on the host (a CPU tensor). Flattened with sorted
+    keys, its leaves come in the reference's order, which is what the
+    checkpoint store writes."""
+    model, opt = state["params"], state["opt"]
+    return {"opt": {"count": _host(opt["count"]),
+                    "m": named_to_reference(model, opt["m"]),
+                    "v": named_to_reference(model, opt["v"])},
+            "params": _dump(model, lambda name, p: _host(p))}
+
+
+@torch.no_grad()
+def load_train_state(state: dict, tree: dict) -> None:
+    """Copy ``tree`` (the layout of :func:`train_state_tree`; tensors or
+    numpy arrays) into ``state`` in place: the model's parameters, the
+    moments and the count stay the same tensors, so whatever holds them
+    stays tied to them. A weight or moment the tree does not set, or one
+    of another shape or type, raises."""
+    model, opt = state["params"], state["opt"]
+    device = opt["count"].device
+    _load_all(model, tree["params"], _into_params(device), "load_train_state")
+    for key in ("m", "v"):
+        _load_all(model, tree["opt"][key], _into(opt[key], device), "load_train_state")
+    opt["count"].copy_(_tensor(tree["opt"]["count"], device, torch.int32))
+
+
+def train_state_from_reference(cfg, tree: dict, device="cuda") -> dict:
+    """The port's train state holding the reference's ``{"params",
+    "opt": {"m", "v", "count"}}`` pytree (numpy arrays): the weights as
+    :func:`params_from_reference` carries them, the moments and the count
+    beside them."""
+    from .launch.steps import init_train_state
+
+    state = init_train_state(params_from_reference(cfg, tree["params"], device))
+    load_train_state(state, tree)
+    return state
+
+
+def train_state_to_reference(state: dict) -> dict:
+    """The inverse of :func:`train_state_from_reference`: the reference's
+    train-state pytree, numpy arrays (bf16 as ``ml_dtypes``')."""
+    return _map(_array, train_state_tree(state))

@@ -22,6 +22,15 @@ The three instances (:func:`kernel_instance`):
   ``ValueError``.
 * ``simt`` (``csrc/flash_attention.cu``): bf16 at head dims 16 and 32,
   on the CUDA cores (strides a multiple of 4 elements).
+
+A head dim between the built ones (zamba2-7b's 112, deepseek-v2's MLA
+128 + 64 = 192) runs at the next built dim (:func:`padded_head_dim`):
+q, k and v are zero-padded, the scale stays ``1/sqrt(D)`` of the
+unpadded D, and the output is sliced back to D. Zero columns change
+neither ``q·k`` nor the softmax, so the result is the unpadded one.
+Above 256 the wrapper raises. No kernel has a backward pass: a CUDA call
+that autograd would want a gradient from raises
+(:func:`repro_torch.kernels.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -32,13 +41,16 @@ import math
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
+from .. import refuse_grad
 from ..build import build_library
 from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "load_kernel", "load_kernel_sm90",
            "load_kernel_tf32", "kernel_instance", "check_kernel_layout",
-           "BLOCK_Q", "BLOCK_K", "HEAD_DIMS", "WGMMA_HEAD_DIMS"]
+           "padded_head_dim", "pad_head_dim", "BLOCK_Q", "BLOCK_K",
+           "HEAD_DIMS", "WGMMA_HEAD_DIMS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCE = _CSRC / "flash_attention.cu"
@@ -140,6 +152,29 @@ def _strides(x) -> tuple[int, int, int]:
                  for n, st in zip(x.shape[:3], x.stride()[:3]))
 
 
+def padded_head_dim(d: int) -> int:
+    """The built head dim a call at head dim ``d`` runs at: ``d`` itself
+    when the kernels are built for it, else the next one up. Raises
+    ``ValueError`` above the largest."""
+    for built in HEAD_DIMS:
+        if built >= d:
+            return built
+    raise ValueError(f"flash_attention: the kernel is built for head dims "
+                     f"{HEAD_DIMS} (smaller ones run zero-padded to the next), "
+                     f"got {d}")
+
+
+def pad_head_dim(q, k, v) -> tuple:
+    """q, k and v zero-padded along the head dim to
+    :func:`padded_head_dim`, or as they are when the kernels are built for
+    their head dim."""
+    d = q.shape[3]
+    extra = padded_head_dim(d) - d
+    if not extra:
+        return q, k, v
+    return tuple(F.pad(x, (0, extra)) for x in (q, k, v))
+
+
 def check_kernel_layout(q, k, v) -> str:
     """Raise unless the kernels take these tensors; returns the instance
     (:func:`kernel_instance`) a CUDA call would launch. Checks type, head
@@ -166,14 +201,15 @@ def check_kernel_layout(q, k, v) -> str:
     return instance
 
 
-def _kernel_args(q, k, v, o, *, causal, window, logit_cap, q_offset, kv_len) -> tuple:
+def _kernel_args(q, k, v, o, *, scale, causal, window, logit_cap, q_offset,
+                 kv_len) -> tuple:
     """The arguments every entry point takes, for tensors that passed
     :func:`check_kernel_layout`, on the current stream."""
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*_strides(q), *_strides(k),
                                        *_strides(v), *o.stride()[:3])
-    masks = (1.0 / math.sqrt(d),
+    masks = (scale,
              float(logit_cap) if logit_cap and logit_cap > 0 else 0.0,
              int(bool(causal)), _clamp(q_offset),
              _NO_LIMIT if window is None else _clamp(window),
@@ -193,9 +229,12 @@ def flash_attention(q, k, v, *, causal=True, window=None, logit_cap=0.0,
     tile by their own sizes whatever they are. On CUDA tensors, float32
     launches the 3xTF32 tensor-core kernel (``tf32x3``), bf16 at head dims
     64, 128 and 256 the bf16 tensor-core kernel (``wgmma_bf16``), and bf16
-    at head dims 16 and 32 the CUDA-core kernel (``simt``). Counts each
-    launch in ``flash_attention.launches`` and, by instance, in
-    ``flash_attention.launches_by_instance``.
+    at head dims 16 and 32 the CUDA-core kernel (``simt``); a head dim in
+    between runs zero-padded to the next built one. Counts each launch in
+    ``flash_attention.launches``, by instance in
+    ``flash_attention.launches_by_instance``, and the padded ones in
+    ``flash_attention.launches_padded``. Raises ``RuntimeError`` on CUDA
+    tensors when autograd would want a gradient through the call.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -204,13 +243,17 @@ def flash_attention(q, k, v, *, causal=True, window=None, logit_cap=0.0,
                                    kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    refuse_grad("flash_attention", q, k, v)
+    d = q.shape[3]
+    q, k, v = pad_head_dim(q, k, v)
     instance = check_kernel_layout(q, k, v)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if o.numel() == 0:
-        return o
+        return o[..., :d]
     with torch.cuda.device(q.device):
-        args = _kernel_args(q, k, v, o, causal=causal, window=window,
-                            logit_cap=logit_cap, q_offset=q_offset, kv_len=kv_len)
+        args = _kernel_args(q, k, v, o, scale=1.0 / math.sqrt(d), causal=causal,
+                            window=window, logit_cap=logit_cap, q_offset=q_offset,
+                            kv_len=kv_len)
         if instance == "tf32x3":
             err = load_kernel_tf32()[0].flash_attention_tf32_launch(*args)
         elif instance == "wgmma_bf16":
@@ -222,8 +265,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, logit_cap=0.0,
                            f"failed: CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.launches_by_instance[instance] += 1
-    return o
+    if q.shape[3] != d:
+        flash_attention.launches_padded += 1
+    return o[..., :d]
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_instance = {"tf32x3": 0, "wgmma_bf16": 0, "simt": 0}
+flash_attention.launches_padded = 0

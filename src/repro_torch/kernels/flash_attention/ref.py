@@ -19,14 +19,17 @@ __all__ = ["flash_attention_ref"]
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, logit_cap=0.0,
-                        q_offset=0, kv_len=None):
-    """q: (B, S, H, D); k/v: (B, T, Hkv, D). Returns (B, S, H, D)."""
+                        q_offset=0, kv_len=None, scale=None):
+    """q: (B, S, H, D); k/v: (B, T, Hkv, D). Returns (B, S, H, D).
+    ``scale`` multiplies the logits; ``None`` is ``1/sqrt(D)`` (a caller
+    that zero-pads the head dim passes the unpadded one's)."""
     b, s, h, d = q.shape
     t = k.shape[1]
     hkv = k.shape[2]
     g = h // hkv
     qg = q.reshape(b, s, hkv, g, d)
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32) * scale
     if logit_cap and logit_cap > 0:
         logits = logit_cap * torch.tanh(logits / logit_cap)

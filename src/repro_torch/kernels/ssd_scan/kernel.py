@@ -11,7 +11,9 @@ build or launch raises, it is never replaced by the plain version.
 The kernels copy x, B and C with 16-byte ``cp.async``: each must have unit
 stride over its last dimension, every other stride (of a dimension longer
 than 1) a multiple of 16 bytes and a 16-byte aligned start; anything else
-raises ``ValueError``.
+raises ``ValueError``. The kernels have no backward pass: a CUDA call that
+autograd would want a gradient from raises
+(:func:`repro_torch.kernels.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from pathlib import Path
 
 import torch
 
+from .. import refuse_grad
 from ..build import build_library
 from .ref import ssd_chunked
 
@@ -122,7 +125,8 @@ def ssd_scan(x, dta, B, C, *, chunk=256, head_group=8):
     ``head_group`` is accepted for the reference's signature: it was a
     TPU tiling choice, and the result does not depend on it. The kernels
     run chunks of ``min(chunk, s, CHUNK_MAX)`` steps. Counts each call
-    that launches them in ``ssd_scan.launches``.
+    that launches them in ``ssd_scan.launches``. Raises ``RuntimeError``
+    on CUDA tensors when autograd would want a gradient through the call.
     """
     _check(x, dta, B, C)
     b, s, h, p = x.shape
@@ -132,6 +136,7 @@ def ssd_scan(x, dta, B, C, *, chunk=256, head_group=8):
         return ssd_chunked(x, dta, B, C, max(1, min(chunk, s)))[0]
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    refuse_grad("ssd_scan", x, dta, B, C)
     check_kernel_layout(x, dta, B, C)
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     if y.numel() == 0:

@@ -1,7 +1,7 @@
 """Model zoo: unified LM covering dense / MoE / SSM / hybrid / VLM / enc-dec.
 
-The port of the JAX package's ``repro.models`` (serving path: prefill and
-decode; training waits for the optimizer's slice)."""
+The port of the JAX package's ``repro.models``: prefill and decode, and
+the loss the train step (:mod:`repro_torch.launch`) differentiates."""
 
 from .common import ModelConfig, cross_entropy_loss
 from .lm import (

@@ -6,8 +6,12 @@ attention product routes through :func:`attention_op`: on CUDA tensors it
 launches the port's hand-written Hopper flash kernels
 (:func:`repro_torch.kernels.ops.flash_attention`), on CPU tensors it runs
 :func:`attention_reference`, the reference's own path off a TPU. There is
-no silent fallback: a kernel that fails to build or launch, or a layout or
-head dim it is not built for, raises.
+no silent fallback: a kernel that fails to build or launch, a layout it
+does not take or a head dim above 256 raises (a head dim between the built
+ones, such as zamba2-7b's 112 or deepseek-v2's MLA 192, runs zero-padded
+to the next, exactly), and so does a CUDA call that autograd would want a
+gradient from, since the kernels have no backward pass: training runs
+``impl="ref"``.
 
 ``window``, ``q_offset`` and ``kv_len`` are Python ints: a layer's
 local/global choice is made on the host (where the reference selects it
@@ -47,8 +51,8 @@ GLOBAL_WINDOW = 2 ** 30     # the reference's window of a global layer
 
 
 def _weight(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised weight. The serving path has no backward pass, so
-    weights do not require grad."""
+    """An uninitialised weight, built without ``requires_grad``: serving
+    wants no gradient, and the train state turns it on."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

@@ -20,12 +20,23 @@ stacks the layers under ``lax.scan``. Segment kinds:
 
 The entry points are functions on an :class:`LM` module: ``init_params``
 (draws an ``LM`` on ``device``, the card unless the caller asks for the
-CPU), ``forward``, ``encode``, ``loss_fn`` (its value; this slice has no
-backward pass, and ``remat`` is accepted and has no effect),
-``init_cache``, ``decode_step`` and ``prefill``. Every attention call
-takes ``impl`` (:data:`repro_torch.models.attention.IMPLS`): on the card
-``"auto"`` runs the flash kernels and ``"ref"`` the plain path. The
-decode cache is updated in place; its position is a Python int.
+CPU), ``forward``, ``encode``, ``loss_fn``, ``init_cache``,
+``decode_step`` and ``prefill``. Every attention call takes ``impl``
+(:data:`repro_torch.models.attention.IMPLS`): on the card ``"auto"`` runs
+the flash kernels and ``"ref"`` the plain path. The decode cache is
+updated in place; its position is a Python int.
+
+Weights are built with ``requires_grad=False`` (serving needs no
+gradient); the train state turns them on
+(:func:`repro_torch.launch.init_train_state`). The flash kernels have no
+backward pass, so a gradient wants ``impl="ref"``: the plain attention
+under autograd, as the reference's ``loss_fn`` runs off a TPU. With
+``remat`` (the default) each block runs under
+``torch.utils.checkpoint`` when autograd records, the counterpart of the
+reference's ``jax.checkpoint`` of each layer: the backward pass recomputes
+a block's activations from its input instead of keeping them. The chunked
+loss (``ce_chunk``) checkpoints each chunk's head and cross entropy, as
+the reference's ``chunk_loss`` is.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import Attention, MLA, init_attn_params, init_mla_params
 from .common import ModelConfig, cross_entropy_loss, embed_init, rms_norm
@@ -342,13 +354,26 @@ def encode(cfg: ModelConfig, model: LM, frontend_embeds, remat: bool = True,
     """Encoder stack over precomputed frontend embeddings (audio stub)."""
     x = frontend_embeds.to(cfg.torch_dtype)
     for blk in model.encoder.segment:
-        x = x + blk.attn(rms_norm(x, blk.norm1), causal=False, impl=impl)
-        x = x + ffn_block(cfg, blk.ffn, rms_norm(x, blk.norm2))
+        x = _remat(remat, _encoder_layer, cfg, blk, x, impl)
     return rms_norm(x, model.encoder.final_norm)
 
 
+def _encoder_layer(cfg: ModelConfig, blk: Block, x, impl: str):
+    x = x + blk.attn(rms_norm(x, blk.norm1), causal=False, impl=impl)
+    return x + ffn_block(cfg, blk.ffn, rms_norm(x, blk.norm2))
+
+
+def _remat(remat: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat`` is
+    set and autograd records (without a graph there is nothing to
+    recompute)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _backbone(cfg: ModelConfig, model: LM, tokens, *, embeds=None, memory=None,
-              impl: str = "auto"):
+              remat: bool = True, impl: str = "auto"):
     """Embed -> segments -> final norm; returns (x_text, aux_loss)."""
     x = _embed_tokens(cfg, model, tokens)
     if embeds is not None:
@@ -358,7 +383,7 @@ def _backbone(cfg: ModelConfig, model: LM, tokens, *, embeds=None, memory=None,
     for spec, seg in zip(segment_plan(cfg), model.segments):
         aux_seg = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk, flag in zip(seg, _layer_flags(spec)):
-            x, aux = blk(x, flag, memory, shared, impl)
+            x, aux = _remat(remat, blk, x, flag, memory, shared, impl)
             aux_seg = aux_seg + aux
         aux_total = aux_total + aux_seg
     x = rms_norm(x, model.final_norm)
@@ -384,35 +409,40 @@ def forward(cfg: ModelConfig, model: LM, tokens, *, embeds=None, memory=None,
     cross-attention (audio/enc-dec).
     """
     x, aux_total = _backbone(cfg, model, tokens, embeds=embeds, memory=memory,
-                             impl=impl)
+                             remat=remat, impl=impl)
     return _head(cfg, model, x), aux_total
 
 
 def loss_fn(cfg: ModelConfig, model: LM, batch, remat: bool = True,
             impl: str = "auto"):
     """``ce + 0.01 * aux`` and ``{"ce", "aux"}``. With the ``ce_chunk``
-    knob the head runs over sequence chunks, so the full (B, S, V) logits
-    never exist at once."""
+    knob the head runs over sequence chunks, each checkpointed when
+    autograd records, so the full (B, S, V) logits never exist at once,
+    in the forward pass or the backward."""
     from .tuning import get_tuning
 
     nchunk = get_tuning().ce_chunk
     s = batch["tokens"].shape[1]
     if nchunk and s % nchunk == 0 and batch.get("mask") is None:
         x, aux = _backbone(cfg, model, batch["tokens"], embeds=batch.get("embeds"),
-                           memory=batch.get("memory"), impl=impl)
+                           memory=batch.get("memory"), remat=remat, impl=impl)
         b = x.shape[0]
         c = s // nchunk
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(0, s, c):
-            lc = batch["labels"][:, i:i + c]
-            logits = _head(cfg, model, x[:, i:i + c])
-            total = total + cross_entropy_loss(logits, lc) * lc.numel()
+            total = total + _remat(True, _chunk_loss, cfg, model, x[:, i:i + c],
+                                   batch["labels"][:, i:i + c])
         ce = total / (b * s)
     else:
         logits, aux = forward(cfg, model, batch["tokens"], embeds=batch.get("embeds"),
-                              memory=batch.get("memory"), impl=impl)
+                              memory=batch.get("memory"), remat=remat, impl=impl)
         ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+def _chunk_loss(cfg: ModelConfig, model: LM, xc, lc):
+    """One chunk's summed cross entropy (its mean times its token count)."""
+    return cross_entropy_loss(_head(cfg, model, xc), lc) * lc.numel()
 
 
 # ---------------------------------------------------------------------------

@@ -61,3 +61,18 @@ def test_shapes_equal_the_reference():
     for arch in ARCHS:
         ref, port = _pair(arch, "CONFIG")
         assert port_configs.applicable_shapes(port) == ref_configs.applicable_shapes(ref)
+
+
+@pytest.mark.parametrize("name", ["CONFIG", "SMOKE"])
+def test_paper_suite_equals_the_reference(name):
+    """``repro_torch.configs.paper``'s ``PaperSuite`` records, field by
+    field."""
+    import repro.configs.paper as ref_paper
+    import repro_torch.configs.paper as paper
+
+    port, ref = getattr(paper, name), getattr(ref_paper, name)
+    fields = [f.name for f in dataclasses.fields(paper.PaperSuite)]
+    assert fields == [f.name for f in dataclasses.fields(ref_paper.PaperSuite)]
+    for f in fields:
+        assert getattr(port, f) == getattr(ref, f), f
+    assert paper.PaperSuite() == paper.CONFIG

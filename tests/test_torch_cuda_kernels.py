@@ -57,7 +57,7 @@ def test_flash_attention_kernel_matches_plain_version(dtype):
 @pytest.mark.cuda
 def test_flash_attention_kernel_refuses_what_it_does_not_take():
     _need_gpu("flash_attention")
-    q, k, v = (x.cuda() for x in _draw(0, (1, 64, 2, 48), (1, 64, 2, 48), (1, 64, 2, 48)))
+    q, k, v = (x.cuda() for x in _draw(0, (1, 64, 2, 320), (1, 64, 2, 320), (1, 64, 2, 320)))
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, k, v)
     q, k, v = (x.double().cuda() for x in _draw(0, (1, 64, 2, 32), (1, 64, 2, 32),
@@ -311,7 +311,8 @@ def test_model_attention_runs_the_flash_kernels():
     kernels: gemma2's smoke model in f32 launches ``tf32x3`` once per layer
     and gives the CPU's logits within 1e-4 of max |logit| (same weights,
     moved); a bf16 decode call at head dim 256 launches ``wgmma_bf16``; a
-    head dim the kernels are not built for (112, zamba2-7b's) raises."""
+    head dim the kernels are not built for (112, zamba2-7b's) runs padded
+    to 128, a padded launch, and equals the plain path."""
     _need_gpu("flash_attention")
     import copy
 
@@ -335,9 +336,11 @@ def test_model_attention_runs_the_flash_kernels():
     attention_op(q, k, k, causal=False, q_offset=63, kv_len=64, window=4096)
     torch.cuda.synchronize()
     assert flash_attention.launches_by_instance["wgmma_bf16"] == before["wgmma_bf16"] + 1
-    z = torch.zeros(1, 4, 2, 112, device="cuda")
-    with pytest.raises(ValueError, match="head dims"):
-        attention_op(z, z, z)
+    z = torch.randn(1, 4, 2, 112, device="cuda")
+    padded = flash_attention.launches_padded
+    out = attention_op(z, z, z)
+    assert flash_attention.launches_padded == padded + 1 and out.shape == z.shape
+    torch.testing.assert_close(out, attention_op(z, z, z, impl="ref"), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda

@@ -6,7 +6,9 @@ guideline campaign, a two-cell factor sweep, a drift audit, a two-cell
 in-process fleet under soft crashes, and the model zoo's serving path:
 ``repro_torch.configs``, ``repro_torch.models`` and
 ``repro_torch.launch`` on every smoke architecture, then the serve
-example, on the CPU)."""
+example; and the training path: a bf16 train step, a checkpoint saved and
+restored, and the supervised trainer through a failure, with ``ml_dtypes``
+blocked too, since the card's machine lacks it; all on the CPU)."""
 
 import ast
 import os
@@ -18,7 +20,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py"]
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 BLOCKED = ("jax", "jaxlib", "repro")
 
 
@@ -47,7 +49,7 @@ import importlib.abc, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -122,10 +124,36 @@ sys.argv = ["serve_lm_torch.py", "--device", "cpu", "--batch", "2", "--prompt-le
             "--tokens", "6"]
 runpy.run_path(EXAMPLE, run_name="__main__")
 
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+from repro_torch.checkpoint import CheckpointConfig, CheckpointStore
+from repro_torch.convert import load_train_state, train_state_tree
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.launch import init_train_state, make_train_step
+from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig, run_supervised
+from repro_torch.runtime.trainer import to_device
+
+cfg = get_smoke("gemma2-2b").scaled(dtype="bfloat16")
+state = init_train_state(init_params(cfg, device="cpu", seed=0))
+batch = to_device(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                         global_batch=2)).batch_at(0), "cpu")
+state, metrics = make_train_step(cfg)(state, batch)
+ckpt = CheckpointStore(CheckpointConfig(directory=tempfile.mkdtemp()))
+ckpt.save(1, train_state_tree(state))
+other = init_train_state(init_params(cfg, device="cpu", seed=1))
+restored, _ = ckpt.restore(train_state_tree(other))
+load_train_state(other, restored)
+assert torch.equal(other["params"].embed, state["params"].embed)
+trainer = Trainer(cfg.scaled(dtype="float32"),
+                  DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2),
+                  trainer_cfg=TrainerConfig(total_steps=4, save_every=2, log_every=100),
+                  ckpt_cfg=CheckpointConfig(directory=tempfile.mkdtemp()), device="cpu")
+trained = run_supervised(trainer, FailureInjector((3,)))
+assert trained["restarts"] == 1 and bool(torch.isfinite(metrics["loss"]))
+
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not loaded, loaded
 print("ok", len(res.records), report.n_measured, len(sweep.cells), len(audit.cells),
-      len(fleet.cells), n_archs)
+      len(fleet.cells), n_archs, len(trained["losses"]))
 """
 
 
@@ -137,4 +165,4 @@ def test_port_runs_with_jax_and_reference_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[0].startswith("prefill: 2x4 tokens in ")          # the serve example
-    assert lines[-1] == "ok 4 8 2 1 2 10"
+    assert lines[-1] == "ok 4 8 2 1 2 10 5"

@@ -5,15 +5,22 @@ attention kernel, ``cp.async`` for the f32 attention kernel and the SSD
 kernels), and how the SSD
 chunk walk's p-tiles cover the head dim. No kernel runs here; the
 kernels themselves are held against their plain versions on the card
-(``test_torch_cuda_kernels.py``, ``chip_smoke.py``).
+(``test_torch_cuda_kernels.py``, ``chip_smoke.py``). Also the head-dim
+padding of the CUDA route and the guard that refuses a gradient.
 """
 
+import math
+
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import needs_grad, refuse_grad
+from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, WGMMA_HEAD_DIMS,
                                                         check_kernel_layout,
-                                                        kernel_instance)
+                                                        kernel_instance, pad_head_dim,
+                                                        padded_head_dim)
 from repro_torch.kernels.ssd_scan.kernel import P_TILE, p_tiles
 from repro_torch.kernels.ssd_scan.kernel import check_kernel_layout as ssd_layout
 
@@ -125,3 +132,49 @@ def test_ssd_p_tiles_cover_p_exactly(p):
     covered = [c for i in range(n_tiles) for c in range(i * tile, min((i + 1) * tile, p))]
     assert covered == list(range(p))
     assert (n_tiles - 1) * tile < p <= n_tiles * tile
+
+
+@pytest.mark.parametrize("d,built", [(8, 16), (48, 64), (112, 128), (128, 128), (192, 256),
+                                     (256, 256)])
+def test_flash_head_dim_padding(d, built):
+    """A head dim between the built ones runs at the next one up, q, k and
+    v zero-padded (a fresh tensor, which passes every layout rule); on the
+    CPU, pad -> plain version at the unpadded scale -> slice equals the
+    plain version at D: in f32 within 1e-6 of max |out|, in bf16 at the
+    reference's bf16 attention bound, 2e-2 (the logits are rounded to bf16,
+    and a sum over more terms may round them otherwise)."""
+    assert padded_head_dim(d) == built
+    rng = np.random.default_rng(d)
+    for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
+        q, k, v = (torch.from_numpy(rng.normal(0, 1, (1, 40, h, d)).astype(np.float32)).to(dtype)
+                   for h in (4, 2, 2))
+        qp, kp, vp = pad_head_dim(q, k, v)
+        assert qp.shape == (1, 40, 4, built) and kp.shape == vp.shape == (1, 40, 2, built)
+        assert not qp[..., d:].any() and torch.equal(qp[..., :d], q)
+        check_kernel_layout(qp, kp, vp)
+        kw = dict(window=16, logit_cap=50.0)
+        want = flash_attention_ref(q, k, v, **kw)
+        got = flash_attention_ref(qp, kp, vp, scale=1.0 / math.sqrt(d), **kw)[..., :d]
+        assert torch.allclose(got.float(), want.float(), rtol=0, atol=tol * float(want.abs().max()))
+
+
+def test_flash_head_dims_above_the_largest_raise():
+    with pytest.raises(ValueError, match="head dims"):
+        padded_head_dim(320)
+    with pytest.raises(ValueError, match="head dims"):
+        pad_head_dim(*_qkv(torch.float32, 320))
+
+
+def test_grad_guard_predicate():
+    """The guard the kernels run on CUDA tensors: a gradient is wanted when
+    grad mode is on and an input requires grad, not otherwise."""
+    a, b = torch.zeros(2), torch.zeros(2, requires_grad=True)
+    assert not needs_grad(a, a)
+    assert needs_grad(a, b)
+    with torch.no_grad():
+        assert not needs_grad(a, b)
+    with torch.inference_mode():
+        assert not needs_grad(a, a)
+    with pytest.raises(RuntimeError, match="no backward pass.*impl=\"ref\""):
+        refuse_grad("flash_attention", a, b)
+    refuse_grad("flash_attention", a, b.detach())

@@ -1,8 +1,8 @@
 """The port's serving path around the model: carrying weights across
 (``params_from_reference`` / ``params_to_reference``), the step functions
 against the reference's, the port's own initialisation, the serve example
-on the CPU, and what the port refuses (no card, a head dim the flash
-kernels lack)."""
+on the CPU, and what the port refuses (no card) or pads (a head dim the
+flash kernels lack)."""
 
 import os
 import subprocess
@@ -21,7 +21,8 @@ import repro_torch.configs as port_configs
 from repro.launch.steps import make_decode_step as ref_make_decode_step
 from repro.launch.steps import make_prefill_step as ref_make_prefill_step
 from repro_torch.convert import params_from_reference, params_to_reference
-from repro_torch.kernels.flash_attention.kernel import check_kernel_layout
+from repro_torch.kernels.flash_attention.kernel import (check_kernel_layout, pad_head_dim,
+                                                        padded_head_dim)
 from repro_torch.launch import make_decode_step, make_prefill_step
 from repro_torch.models import init_cache, init_params, num_params
 from repro_torch.models.lm import encode
@@ -193,14 +194,23 @@ def test_init_params_wants_the_card():
         init_params(port_configs.get_smoke("gemma2-2b"))
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "deepseek-v2-236b"])
-def test_head_dims_the_kernel_lacks_raise(arch):
+@pytest.mark.parametrize("arch,d", [("zamba2-7b", 112), ("deepseek-v2-236b", 192), (None, 320)],
+                         ids=["zamba2-7b", "deepseek-v2-236b", "d320"])
+def test_head_dims_the_kernel_lacks_raise(arch, d):
     """At full width zamba2 has head dim 112 and deepseek-v2's MLA 128 + 64
-    = 192; the flash kernels are built for 16-256 in powers of two, so the
-    card refuses them (the layout check the CUDA route runs first)."""
-    cfg = port_configs.get_config(arch)
-    d = cfg.hd + (cfg.rope_head_dim if cfg.kv_lora_rank else 0)
-    assert d in (112, 192)
+    = 192. The flash kernels are built for 16-256 in powers of two, so they
+    lack both: the layout check refuses them as they are. The wrapper runs
+    them zero-padded to the next built dim (128, 256), where the check
+    passes; a head dim above 256 (320) has no such dim and raises."""
+    if arch is not None:
+        cfg = port_configs.get_config(arch)
+        assert cfg.hd + (cfg.rope_head_dim if cfg.kv_lora_rank else 0) == d
     q = torch.zeros(1, 4, 2, d)
     with pytest.raises(ValueError, match="head dims"):
         check_kernel_layout(q, q, q)
+    if d > 256:
+        with pytest.raises(ValueError, match="head dims"):
+            padded_head_dim(d)
+        return
+    assert check_kernel_layout(*pad_head_dim(q, q, q)) == "tf32x3"
+    assert padded_head_dim(d) == {112: 128, 192: 256}[d]
