@@ -5,8 +5,8 @@ drive the paths (the simulated measurement campaign, the kernel A/B
 campaign, on random-walk clocks campaigns and the barrier scheme, the
 factor sweeps, drift audit and calibration over the campaign, the
 performance-guideline family, the fault-tolerant sweep fleet, the model
-zoo's serving path and its training path) at sizes users run, and check
-what comes out.
+zoo's serving path, its training path and real collectives on
+``torch.distributed``) at sizes users run, and check what comes out.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -148,10 +148,31 @@ Phases, each of which raises (exit code 1) on failure:
      loss down by 10%, the gradient guard's refusal, the step's time with
      its CI, tokens/s, bound, peak memory and a profile (idle share,
      device time by class), then a prefill step on the trained weights;
- 21. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
+ 21. real collectives through ``TorchCollectiveBackend`` (no kernel of
+     the port: NCCL's and gloo's own collectives are what is measured):
+     (a) NCCL at world size 1, ``psum``, ``all_gather`` and ``all_to_all``
+     at 1 KiB, 64 KiB and 16 MiB in f32 and bf16, each output equal to
+     ``expected_collective`` exactly, the median of 100 timed repetitions
+     (a barrier, then the maximum of the ranks' local times) with the
+     card's bound beside each 16 MiB time, then a 3-epoch campaign at nrep
+     100 over ``default_cases()`` stored and reloaded; (b) gloo with CUDA
+     tensors, four ranks sharing the card: the same ops at 1 KiB, 64 KiB
+     and 1 MiB plus ``psum+all_gather`` and ``psum@half``, held exactly,
+     with each group's start-up and the rank skew, the same four ranks on
+     CPU tensors (the host's ring alone), and a 3-epoch campaign on a
+     fresh group each epoch; (c) NCCL across ranks where there are
+     two GPUs, else one line saying why not and a check that the refusal
+     raises before any process starts; (d) the sim <-> real fit of
+     ``examples/calibrate_sim_torch.py --target collective`` against (b)'s
+     backend (the reference CLI's knobs, epochs and nrep, 4 rounds): the
+     fitted values, objective, verdict (a finding, not a gate) and wall,
+     its store reloaded; (e) a rank SIGKILLed between two ``measure``
+     calls: the next raises within the timeout and no rank is left;
+ 22. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
      once per type; ``sim_scan``'s entry counts its launches on the main
      path, on the two paths of phases 11 and 12, on the three of phases
-     13-15 and on phases 16 and 17 (this process only); the two flash
+     13-15, on phases 16 and 17 (this process only) and in phase 21d's
+     fit (``launches_collective_calibrate``); the two flash
      entries add ``launches_serve``, their launches on the serving path
      (phases 18 and 19a for ``tf32x3``, 19b for ``wgmma_bf16``), and the
      bf16 entry its time at 19d's depth-8192 decode call; both add
@@ -2902,6 +2923,236 @@ def phase_training(torch) -> dict:
     return smoke["launches"] + full["c"]["launches"]
 
 
+COLL_OPS = ("psum", "all_gather", "all_to_all")
+#: Coordinate-descent rounds of 21d's fit, cut from the reference CLI's 8
+#: to keep phase 21 near 150 s on the card.
+COLLECTIVE_FIT_ROUNDS = 4
+
+
+def coll_bytes(op, n, count, itemsize) -> int:
+    """Bytes one rank's collective reads and writes in device memory: its
+    input once and its output once (``all_gather`` writes ``n`` inputs)."""
+    return itemsize * count * (1 + (n if op == "all_gather" else 1))
+
+
+def coll_held(torch, backend, ctx, case, tag) -> None:
+    """Every rank's output of ``case`` equals ``expected_collective``
+    exactly (the ranks held it once already, when the case was built)."""
+    import numpy as np
+
+    from repro_torch.campaign.ranks import expected_collective
+
+    outs = backend.outputs(ctx, case)
+    terms = backend._build_case(case.op, case.msize)
+    dt = getattr(torch, backend.dtype)
+    for rank, got in enumerate(outs):
+        for (op, count, tn), out in zip(terms, got):
+            if rank >= tn:
+                require(out is None, f"{tag} {case.op}@{case.msize}: rank {rank} idle")
+                continue
+            want = expected_collective(op, rank, tn, count, dt).float().numpy()
+            require(out is not None and np.array_equal(out, want),
+                    f"{tag} {case.op}@{case.msize} {backend.dtype}: rank {rank}'s {op} "
+                    f"== expected_collective exactly")
+
+
+def coll_table(torch, backend, msizes, nrep, tag, bound_at=None) -> dict:
+    """Each op at each size on one group: held exactly, then ``nrep``
+    timed repetitions (barrier + max over ranks); the median in us, with
+    the card's bound beside the size ``bound_at``."""
+    import numpy as np
+
+    from repro_torch.core import TestCase
+
+    out = {}
+    ctx = backend.make_epoch(0)
+    n, itemsize = backend._n(), getattr(torch, backend.dtype).itemsize
+    print(f"# {tag} {n} {ctx.group.dist_backend} rank(s), {backend.dtype}, group start-up "
+          f"{ctx.group.startup_s:.3f} s (spawn to first barrier) | {smi()}")
+    for op in COLL_OPS:
+        cells = []
+        for msize in msizes:
+            case = TestCase(op, msize)
+            coll_held(torch, backend, ctx, case, tag)
+            times = backend.measure(ctx, case, nrep)
+            skew = backend.record_meta(ctx, case)["rank_skew_s"]
+            med = float(np.median(times)) * 1e6
+            [(_, count, _)] = backend._build_case(op, msize)
+            cell = f"{msize} B {med:.1f} us"
+            if n > 1:
+                cell += f" (skew {skew * 1e6:.1f} us)"
+            if bound_at is not None and msize == bound_at:
+                moved = coll_bytes(op, n, count, itemsize)
+                cell += (f", bound {moved / HBM_BYTES_PER_S * 1e6:.1f} us "
+                         f"({moved / 2**20:.0f} MiB at 3.35 TB/s)")
+            cells.append(cell)
+            out[(op, msize)] = med
+        print(f"# {tag} {op}: " + "; ".join(cells) + f" (median of {nrep}, held exactly)")
+    return out
+
+
+def coll_campaign(torch, backend, nrep, tag, tmp) -> dict:
+    """A 3-epoch campaign over ``default_cases()``, a fresh rank group each
+    epoch, stored and reloaded: each group's start-up, each case's
+    per-epoch medians and rank skew."""
+    import numpy as np
+
+    from repro_torch.campaign import Campaign, CampaignSpec, ResultStore
+    from repro_torch.core import ExperimentDesign
+
+    store = ResultStore(tmp / f"{tag.strip('[]').replace(' ', '-')}.jsonl")
+    spec = CampaignSpec(backend.default_cases(),
+                        ExperimentDesign(n_launch_epochs=3, nrep=nrep, seed=0), name=tag)
+    t = time.perf_counter()
+    with backend:
+        res = Campaign(spec, backend, store).run()
+    wall = time.perf_counter() - t
+    table = ResultStore(store.path).to_table(res.fingerprint)
+    starts = {r.epoch: r.meta["group_start_s"] for r in res.records}
+    pids = {r.epoch: tuple(r.meta["rank_pids"]) for r in res.records}
+    require(len(set(pids.values())) == 3, f"{tag} campaign: a fresh rank group each epoch")
+    print(f"# {tag} campaign: 3 epochs x {len(spec.cases)} cases at nrep {nrep}, wall "
+          f"{wall:.2f} s; group start-up by epoch "
+          + ", ".join(f"{starts[e]:.3f}" for e in sorted(starts)) + " s")
+    meds = {}
+    for case in spec.cases:
+        med = table.medians(case)
+        require(med.size == 3 and bool(np.all(med > 0)),
+                f"{tag} campaign {case.op}@{case.msize}: 3 positive per-epoch medians "
+                "reloaded from the store")
+        skew = [r.meta["rank_skew_s"] for r in res.records if r.case == case]
+        meds[(case.op, case.msize)] = med
+        print(f"# {tag} campaign {case.op}@{case.msize}: per-epoch medians "
+              + ", ".join(f"{m * 1e6:.1f}" for m in med) + " us; rank skew "
+              + ", ".join(f"{s * 1e6:.1f}" for s in skew) + " us")
+    return dict(wall=wall, starts=starts, medians=meds)
+
+
+def phase_collectives(torch, device="cuda") -> int:
+    """Phase 21, real collectives: (a) NCCL at world size 1 on the card,
+    (b) gloo with CUDA tensors, four ranks on one card, (c) NCCL across
+    ranks where there are two GPUs, else its refusal, (d) the sim <-> real
+    calibration fit against (b)'s backend, (e) a rank killed between two
+    measure calls. Returns sim_scan's launches in (d)'s fit."""
+    from repro_torch.fleet.scheduler import stop_worker_server
+
+    t = time.perf_counter()
+    try:
+        launches = _collective_runs(torch, device)
+    finally:
+        stop_worker_server()        # the fork server the ranks forked from
+    print(f"# [21] {time.perf_counter() - t:.2f} s")
+    return launches
+
+
+def _collective_runs(torch, device) -> int:
+    import multiprocessing as mp
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.campaign import ResultStore, TorchCollectiveBackend
+    from repro_torch.core import TestCase
+    from repro_torch.core.runtime_meter import MeterConfig
+    from repro_torch.kernels.sim_scan import sim_durations_scan
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_collectives_"))
+    on_card = device == "cuda"
+    before = set(mp.active_children())
+    shared = MeterConfig(epoch_isolation="none")
+    # (a) one NCCL rank: real NCCL collectives on the card's memory (gloo
+    # on a CPU rehearsal)
+    one = "nccl" if on_card else "gloo"
+    for dtype in ("float32", "bfloat16"):
+        with TorchCollectiveBackend(n_ranks=1, device=device, dist_backend=one,
+                                    meter=shared, dtype=dtype) as b:
+            coll_table(torch, b, (1 << 10, 1 << 16, 1 << 24), 100, "[21a]", bound_at=1 << 24)
+    coll_campaign(torch, TorchCollectiveBackend(n_ranks=1, device=device, dist_backend=one),
+                  100, "[21a]", tmp)
+
+    # (b) four gloo ranks sharing the card, CUDA tensors staged through the host
+    with TorchCollectiveBackend(n_ranks=4, device=device, dist_backend="gloo",
+                                meter=shared) as b:
+        coll_table(torch, b, (1 << 10, 1 << 16, 1 << 20), 100, "[21b]")
+        ctx = b.make_epoch(0)
+        for expr in ("psum+all_gather", "psum@half"):
+            case = TestCase(expr, 1 << 16)
+            coll_held(torch, b, ctx, case, "[21b]")
+            times = b.measure(ctx, case, 100)
+            skew = b.record_meta(ctx, case)["rank_skew_s"]
+            print(f"# [21b] {expr}@{1 << 16}: held exactly; median "
+                  f"{float(np.median(times)) * 1e6:.1f} us, skew {skew * 1e6:.1f} us")
+    if on_card:
+        # the same four ranks on CPU tensors: the host's ring alone, without
+        # the staging through the card and four CUDA contexts sharing it
+        with TorchCollectiveBackend(n_ranks=4, device="cpu", dist_backend="gloo",
+                                    meter=shared) as b:
+            coll_table(torch, b, (1 << 10, 1 << 16, 1 << 20), 100, "[21b cpu tensors]")
+    coll_campaign(torch, TorchCollectiveBackend(n_ranks=4, device=device, dist_backend="gloo"),
+                  100, "[21b]", tmp)
+
+    # (c) NCCL across ranks needs one GPU per rank
+    gpus = torch.cuda.device_count() if on_card else 0
+    if gpus >= 2:
+        with TorchCollectiveBackend(n_ranks=gpus, device=device, dist_backend="nccl",
+                                    meter=shared) as b:
+            coll_table(torch, b, (1 << 10, 1 << 16, 1 << 24), 100, "[21c]", bound_at=1 << 24)
+    else:
+        try:
+            TorchCollectiveBackend(n_ranks=2, device=device, dist_backend="nccl")
+        except ValueError as e:
+            refused = str(e)
+        else:
+            refused = None
+        require(refused is not None and set(mp.active_children()) <= before,
+                "[21c] NCCL over 2 ranks refused with ValueError, no process started")
+        print(f"# [21c] NCCL across ranks skipped: {gpus} GPU(s) here, and {refused}")
+
+    # (d) the sim <-> real fit against (b)'s backend (examples/calibrate_sim_torch.py)
+    sim_durations_scan.launches = 0
+    fit = load_example("calibrate_sim_torch").fit_collective(
+        device, tmp / "calib", ranks=4, dist_backend="gloo", rounds=COLLECTIVE_FIT_ROUNDS)
+    launches = sim_durations_scan.launches
+    result = fit["result"]
+    reloaded = ResultStore(fit["store"]).records(result.target_fingerprint)
+    require(len(reloaded) == 12 * 4 and np.isfinite(result.objective) and result.rounds,
+            "[21d] the fit completed and its target's 48 records reload from the store")
+    if on_card:
+        require(launches > 0, "[21d] the fit's candidates launched sim_scan")
+    print(f"# [21d calibrate] TorchSimBackend(p=4) fitted to 4 gloo ranks on {device}: "
+          + ", ".join(f"{k} {v:.6g}" for k, v in result.params.items())
+          + f"; objective {result.objective:.6f}, {len(result.rounds)} rounds (max "
+          f"{COLLECTIVE_FIT_ROUNDS}), verdict {result.verdict}, sim_scan launches "
+          f"{launches}, wall {fit['wall']:.2f} s | {smi()}")
+
+    # (e) a rank killed between two measure calls
+    timeout = 20.0
+    with TorchCollectiveBackend(n_ranks=4, device=device, dist_backend="gloo",
+                                timeout_s=timeout) as b:
+        ctx = b.make_epoch(0)
+        b.measure(ctx, TestCase("psum", 1 << 10), 5)
+        os.kill(ctx.group.pids[2], signal.SIGKILL)
+        t = time.perf_counter()
+        try:
+            b.measure(ctx, TestCase("psum", 1 << 10), 5)
+        except RuntimeError as e:
+            err = str(e).splitlines()[0]
+        else:
+            err = None
+        took = time.perf_counter() - t
+    deadline = time.monotonic() + 5.0
+    while set(mp.active_children()) - before and time.monotonic() < deadline:
+        time.sleep(0.05)
+    require(err is not None and took <= timeout + 5.0 and not set(mp.active_children()) - before,
+            f"[21e] the next call raised RuntimeError within {timeout + 5:.0f} s ({took:.3f} s) "
+            "and no rank is left")
+    print(f"# [21e] rank 2 of 4 SIGKILLed between two measure calls: RuntimeError after "
+          f"{took:.3f} s ({err}); no rank left")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2966,6 +3217,9 @@ def main() -> int:
     # autograd, so it launches no flash kernel (counted, and held at 0)
     reset_flash_counts()
     flash["launches_train"] = flash_bf16["launches_train"] = phase_training(torch)
+    # real collectives on torch.distributed; the fit's candidates sample
+    # through sim_scan
+    kernel["launches_collective_calibrate"] = phase_collectives(torch)
     print(json.dumps({"kernels": [kernel, flash, flash_bf16, ssd, ssd_bf16]}))
     print(f"# total {time.perf_counter() - t0:.1f} s")
     print(smi())

@@ -35,6 +35,15 @@ CUDA context), with seeded fault injection; its merged store equals the
 serial run's record for record. The PGMPI guideline family
 (``SIM_GUIDELINES``, :mod:`repro_torch.guidelines`) verifies the
 simulated library through the same campaign.
+
+The fourth path measures real collectives:
+:class:`~repro_torch.campaign.TorchCollectiveBackend` (the port of
+``JaxBackend``) runs ``psum``, ``all_gather`` and ``all_to_all`` on
+``torch.distributed`` across a :class:`~repro_torch.campaign.RankGroup`
+of rank processes, a fresh group each launch epoch, timed by a barrier
+and the maximum over the ranks; :func:`~repro_torch.campaign.ensure_ranks`
+refuses what cannot run (NCCL takes one rank per device). It is also the
+real target of the sim calibration fit.
 :class:`~repro_torch.campaign.FunctionBackend` lifts an
 ``(epoch_factory, measure)`` pair into the backend protocol.
 
@@ -42,8 +51,9 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 each kernel's plain PyTorch version runs instead.
 """
 
-from .campaign import (Campaign, CampaignResult, CampaignSpec, ResultStore,
-                       TorchKernelBackend, TorchSimBackend)
+from .campaign import (Campaign, CampaignResult, CampaignSpec, RankGroup,
+                       ResultStore, TorchCollectiveBackend, TorchKernelBackend,
+                       TorchSimBackend, ensure_ranks)
 from .core import (BarrierRun, ExperimentDesign, TestCase, probe_barrier_skew,
                    run_barrier_timed, run_design)
 
@@ -54,6 +64,9 @@ __all__ = [
     "ResultStore",
     "TorchSimBackend",
     "TorchKernelBackend",
+    "TorchCollectiveBackend",
+    "RankGroup",
+    "ensure_ranks",
     "ExperimentDesign",
     "TestCase",
     "run_design",

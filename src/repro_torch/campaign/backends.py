@@ -10,8 +10,10 @@ the port of the JAX package's ``SimBackend``, with the same dataclass
 fields and knobs, so a store it writes carries the same factors.
 :class:`TorchKernelBackend` measures real work instead: the hand-written
 Hopper kernels against their plain PyTorch versions, the port of
-``KernelBackend``. :class:`FunctionBackend` lifts a bare ``(epoch_factory,
-measure)`` pair into the protocol.
+``KernelBackend``. :class:`TorchCollectiveBackend` measures real
+collectives on ``torch.distributed`` across a group of rank processes,
+the port of ``JaxBackend``. :class:`FunctionBackend` lifts a bare
+``(epoch_factory, measure)`` pair into the protocol.
 """
 
 from __future__ import annotations
@@ -34,9 +36,10 @@ from ..core.sync import SYNC_CLASSES, make_sync
 from ..kernels.ops import IMPLS, make_benchmark_op
 from ..simengine import (resolve_device, run_windowed_epochs_torch,
                          run_windowed_torch)
+from .ranks import COLLECTIVES, RankGroup, ensure_ranks, resolve_dist_backend
 
 __all__ = ["MeasurementBackend", "TorchSimBackend", "TorchKernelBackend",
-           "FunctionBackend"]
+           "TorchCollectiveBackend", "FunctionBackend"]
 
 _SYNC_KW = dict(n_fitpts=200, n_exchanges=40)
 
@@ -443,6 +446,208 @@ class TorchKernelBackend:
 
     def default_cases(self) -> list[TestCase]:
         return [TestCase("flash_attention", s) for s in (64, 128)]
+
+
+# ---------------------------------------------------------------------------
+# Real collectives across rank processes
+# ---------------------------------------------------------------------------
+
+def collective_count(msize: int, n: int, itemsize: int) -> int:
+    """Elements of each rank's payload for ``msize`` bytes over ``n``
+    ranks: the reference's rule, at least ``n`` and padded to a multiple
+    of ``n`` so that ``all_to_all`` splits evenly."""
+    count = max(n, -(-int(msize) // itemsize))
+    return -(-count // n) * n
+
+
+class _CollectiveEpoch:
+    """One launch epoch: the rank group it runs on, the cases warmed in
+    it, and each case's per-rank local times until its record is made."""
+
+    def __init__(self, group: RankGroup):
+        self.group = group
+        self.warmed: set[str] = set()
+        self.local: dict[str, list] = {}
+
+
+@dataclass
+class TorchCollectiveBackend:
+    """Real collectives on ``torch.distributed`` across ``n_ranks`` rank
+    processes: the port of the JAX package's ``JaxBackend``.
+
+    ``case.op`` is one of ``psum`` (``all_reduce`` with SUM),
+    ``all_gather`` or ``all_to_all``, the reference's names, so a campaign
+    spec written for ``JaxBackend`` runs unchanged; or an op expression of
+    them: ``+`` runs its terms in sequence inside one timed region, and
+    ``@half`` runs a term over the first ``max(2, n // 2)`` ranks (a
+    subgroup from ``dist.new_group``). ``case.msize`` is the bytes of each
+    rank's payload (:func:`collective_count` elements of ``dtype``); rank
+    ``r``'s input holds ``r``. Every newly built case runs once, untimed,
+    on every rank and is held exactly against
+    :func:`~repro_torch.campaign.ranks.expected_collective`.
+
+    **Timing (``sync_method="barrier+max"``).** The reference times one
+    host call around ``pmap`` with ``block_until_ready``: the wall from
+    the launch until the slowest device is done. Across processes each
+    repetition is: every rank of the group meets at ``dist.barrier()``;
+    each rank reads ``perf_counter_ns()``, runs its terms, fences with
+    ``torch.cuda.synchronize()`` on CUDA and reads its clock again (a rank
+    outside every term records 0); the measurement is the maximum of the
+    ranks' local times. This is the barrier scheme of the paper's §4.6,
+    chosen because it is what the reference's timing amounts to, not
+    because it is the paper's best scheme. ``meter.warmup`` untimed
+    repetitions run once per case per epoch.
+
+    **Launch epochs.** Under ``meter.epoch_isolation="clear_caches"``
+    each launch epoch runs on a fresh :class:`RankGroup`, new processes
+    and a new process group (the paper's fresh ``mpirun``), after the
+    previous epoch's group is closed; under ``"none"`` one group serves
+    every epoch. :meth:`close` (or ``with``) ends the last group.
+
+    ``device`` is ``"cuda"`` (the default) or ``"cpu"``; ``dist_backend``
+    ``None`` means NCCL on CUDA and gloo on the CPU, and gloo with CUDA
+    tensors runs when asked for by name. ``n_ranks=None`` means one rank
+    per CUDA device; on the CPU it must be given. What cannot run raises
+    when the backend is made (:func:`~repro_torch.campaign.ranks.ensure_ranks`):
+    NCCL with more ranks than devices, CUDA without a card.
+    ``meter.cold_buffers`` raises: the reference records ``"cold"`` in
+    its factors without applying it, and the port applies nothing it
+    cannot. ``timeout_s`` bounds each wait for the ranks.
+    """
+
+    ops: tuple = COLLECTIVES
+    n_ranks: int | None = None        # None = one rank per CUDA device
+    device: str = "cuda"              # cuda | cpu
+    dist_backend: str | None = None   # nccl | gloo | None (by device)
+    meter: MeterConfig = field(
+        default_factory=lambda: MeterConfig(epoch_isolation="clear_caches"))
+    dtype: str = "float32"
+    name: str = "torch-collective"
+    timeout_s: float = 60.0
+    _group: Any = field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        dev = resolve_device(self.device)
+        if self.n_ranks is None and dev.type != "cuda":
+            raise ValueError("TorchCollectiveBackend: n_ranks must be given "
+                             "on the CPU")
+        ensure_ranks(self._n(), self.device, self.dist_backend)
+        if self.meter.cold_buffers:
+            raise ValueError(
+                "TorchCollectiveBackend: cold_buffers is not supported (the "
+                "reference records it without applying it)")
+        if self.meter.epoch_isolation not in ("clear_caches", "none"):
+            raise ValueError(f"TorchCollectiveBackend: epoch_isolation must "
+                             f"be 'clear_caches' or 'none', got "
+                             f"{self.meter.epoch_isolation!r}")
+        if not isinstance(getattr(torch, self.dtype, None), torch.dtype) \
+                or not getattr(torch, self.dtype).is_floating_point:
+            raise ValueError(f"TorchCollectiveBackend: dtype must name a "
+                             f"floating torch dtype, got {self.dtype!r}")
+
+    def _n(self) -> int:
+        return self.n_ranks or torch.cuda.device_count()
+
+    def _build_case(self, opexpr: str, msize: int) -> list:
+        """The case's terms as ``(op, count, group_size)``, parsed here,
+        before anything is sent to a rank, with the reference's errors."""
+        n = self._n()
+        itemsize = getattr(torch, self.dtype).itemsize
+        terms = []
+        for t in parse_opexpr(opexpr):
+            if t.impl is not None:
+                raise ValueError(f"TorchCollectiveBackend: '#{t.impl}' "
+                                 f"implementation tags are not supported "
+                                 f"(case {opexpr!r})")
+            if t.op not in COLLECTIVES:
+                raise ValueError(f"TorchCollectiveBackend: unknown collective "
+                                 f"{t.op!r}; one of {self.ops}")
+            tn = max(2, n // 2) if t.procs == "half" else n
+            if tn > n:
+                raise ValueError(f"TorchCollectiveBackend: '@half' needs at "
+                                 f"least 2 ranks, have {n} (case {opexpr!r})")
+            terms.append((t.op, collective_count(t.msize(msize), tn, itemsize),
+                          tn))
+        return terms
+
+    def make_epoch(self, epoch: int) -> _CollectiveEpoch:
+        if self.meter.epoch_isolation == "clear_caches":
+            self.close()
+        if self._group is None:
+            self._group = RankGroup(self._n(), self.device, self.dist_backend,
+                                    self.timeout_s)
+        return _CollectiveEpoch(self._group)
+
+    def _ensure_built(self, ctx: _CollectiveEpoch, case: TestCase) -> str:
+        key = f"{case.op}@{case.msize}"
+        if key not in ctx.group.built:
+            ctx.group.build(key, self._build_case(case.op, case.msize),
+                            self.dtype)
+        return key
+
+    def measure(self, ctx: _CollectiveEpoch, case: TestCase,
+                nrep: int) -> np.ndarray:
+        key = self._ensure_built(ctx, case)
+        warmup = 0 if key in ctx.warmed else self.meter.warmup
+        ctx.warmed.add(key)
+        local = ctx.group.measure(key, nrep, warmup)
+        ctx.local.setdefault(key, []).append(local)
+        return local.max(axis=0)
+
+    def outputs(self, ctx: _CollectiveEpoch, case: TestCase) -> list:
+        """Run ``case`` once untimed: per rank, each term's output in the
+        reference's per-device shape (``None`` where the rank is outside
+        the term)."""
+        return ctx.group.check(self._ensure_built(ctx, case))
+
+    def record_meta(self, ctx: _CollectiveEpoch, case: TestCase) -> dict:
+        """Per-record provenance: the device and process-group backend,
+        the ranks' process ids, the group's start-up [s] (spawn to first
+        barrier), and the rank skew [s], the median over repetitions of
+        the spread of the local times over the ranks that ran."""
+        local = np.concatenate(ctx.local.pop(f"{case.op}@{case.msize}"),
+                               axis=1)
+        ran = local[np.any(local > 0, axis=1)]
+        return {"device": str(resolve_device(self.device)),
+                "dist_backend": ctx.group.dist_backend,
+                "rank_pids": list(ctx.group.pids),
+                "group_start_s": ctx.group.startup_s,
+                "rank_skew_s": float(np.median(ran.max(0) - ran.min(0)))}
+
+    def close(self) -> None:
+        """End the current rank group, if any."""
+        if self._group is not None:
+            self._group.close()
+            self._group = None
+
+    def __enter__(self) -> "TorchCollectiveBackend":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def factors(self, design: ExperimentDesign) -> FactorSet:
+        dev = resolve_device(self.device)
+        return capture_torch_factors(
+            device=dev,
+            backend=dev.type,
+            device_kind=(torch.cuda.get_device_name(dev)
+                         if dev.type == "cuda" else "cpu"),
+            measurement_backend=self.name,
+            sync_method="barrier+max",
+            mesh_shape=(self._n(),),
+            mesh_axes=("i",),
+            epoch_isolation=self.meter.epoch_isolation,
+            buffer_policy="warm",
+            dtype=self.dtype,
+            extra=(("ops", tuple(self.ops)), ("warmup", self.meter.warmup),
+                   ("dist_backend",
+                    resolve_dist_backend(dev, self.dist_backend))),
+            **_design_factor_kw(design),
+        )
+
+    def default_cases(self) -> list[TestCase]:
+        return [TestCase(op, m) for op in self.ops for m in (1 << 10, 1 << 16)]
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ in-process fleet under soft crashes, and the model zoo's serving path:
 ``repro_torch.launch`` on every smoke architecture, then the serve
 example; and the training path: a bf16 train step, a checkpoint saved and
 restored, and the supervised trainer through a failure, with ``ml_dtypes``
-blocked too, since the card's machine lacks it; all on the CPU)."""
+blocked too, since the card's machine lacks it; and real collectives: a
+two-epoch ``TorchCollectiveBackend`` campaign on two gloo ranks, a fresh
+rank group each epoch; all on the CPU)."""
 
 import ast
 import os
@@ -149,11 +151,19 @@ trainer = Trainer(cfg.scaled(dtype="float32"),
 trained = run_supervised(trainer, FailureInjector((3,)))
 assert trained["restarts"] == 1 and bool(torch.isfinite(metrics["loss"]))
 
+from repro_torch import TorchCollectiveBackend
+
+with TorchCollectiveBackend(n_ranks=2, device="cpu") as coll:
+    coll_res = Campaign(CampaignSpec([TestCase("psum", 256), TestCase("all_gather", 256)],
+                                     ExperimentDesign(n_launch_epochs=2, nrep=5, seed=1)),
+                        coll).run()
+assert len({tuple(r.meta["rank_pids"]) for r in coll_res.records}) == 2
+
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not loaded, loaded
 print("ok", len(res.records), report.n_measured, len(sweep.cells), len(audit.cells),
-      len(fleet.cells), n_archs, len(trained["losses"]))
+      len(fleet.cells), n_archs, len(trained["losses"]), len(coll_res.records))
 """
 
 
@@ -165,4 +175,4 @@ def test_port_runs_with_jax_and_reference_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[0].startswith("prefill: 2x4 tokens in ")          # the serve example
-    assert lines[-1] == "ok 4 8 2 1 2 10 5"
+    assert lines[-1] == "ok 4 8 2 1 2 10 5 4"
