@@ -5,8 +5,9 @@ drive the paths (the simulated measurement campaign, the kernel A/B
 campaign, on random-walk clocks campaigns and the barrier scheme, the
 factor sweeps, drift audit and calibration over the campaign, the
 performance-guideline family, the fault-tolerant sweep fleet, the model
-zoo's serving path, its training path and real collectives on
-``torch.distributed``) at sizes users run, and check what comes out.
+zoo's serving path, its training path, real collectives on
+``torch.distributed``, and the sharded model with its dry run) at sizes
+users run, and check what comes out.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -168,7 +169,33 @@ Phases, each of which raises (exit code 1) on failure:
      fitted values, objective, verdict (a finding, not a gate) and wall,
      its store reloaded; (e) a rank SIGKILLed between two ``measure``
      calls: the next raises within the timeout and no rank is left;
- 22. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
+ 22. sharding and launch analysis, in a process of its own (so that no
+     process group outlives it): (a) the dry run of gemma2-2b's
+     train_4k, prefill_32k and decode_32k cells on the 16x16 mesh (and
+     decode_32k on 2x16x16) over a fake world of 256 (512) ranks, every
+     tensor on ``meta``: each report's three roofline terms against the
+     ``H100`` record, bottleneck, useful-FLOPs ratio, roofline fraction,
+     argument bytes per device against 80 GB and the cell's wall; (b)
+     gemma2-2b at full width in bf16 with its weights as DTensors placed
+     by ``param_specs`` on a 1x1 NCCL mesh (world size 1): a prefill step
+     at B 1, S 8192 and 4 decode steps at batch 4 after a 128-token
+     prompt, bit-equal to the plain model on the same weights, each
+     step's time both ways, the flash kernel launched once a layer on the
+     local shards through ``local_map`` (``launches_sharded``, counted by
+     the wrapper, each a ``wgmma_bf16`` launch); first the plain model's
+     prefill at that shape, each of its flash calls held at phase 7's
+     bf16 check and its logits within ``BF16_DECODE_BOUND`` of the plain
+     path's (``impl="ref"``); (c) phase 20c's train step counted by
+     ``lower_cell`` at world size 1 beside the same step run on the card:
+     FLOPs, bytes, the roofline bound, the measured step, the predicted
+     peak against ``max_memory_allocated`` (a finding, not a gate); (d)
+     four gloo ranks sharing the card, a 2x2 ``"cuda"`` mesh, gemma2-2b
+     in bf16 at full width: a prefill at batch 2, S 2048 and 2 decode
+     steps, the flash kernel on each rank's batch and head shards, every
+     local call held at phase 7's bf16 check, each rank's part of the
+     logits within ``BF16_DECODE_BOUND`` of the unsharded model's and
+     the plain path's;
+ 23. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
      once per type; ``sim_scan``'s entry counts its launches on the main
      path, on the two paths of phases 11 and 12, on the three of phases
      13-15, on phases 16 and 17 (this process only) and in phase 21d's
@@ -178,7 +205,9 @@ Phases, each of which raises (exit code 1) on failure:
      bf16 entry its time at 19d's depth-8192 decode call; both add
      ``launches_train``, their launches in phase 20's train steps (0: the
      train step runs the plain attention, held so), and ``padded``, phase
-     7's padded calls.
+     7's padded calls; the bf16 entry adds ``launches_sharded``, its
+     launches on DTensors' local shards in phase 22b, and
+     ``launches_sharded_ranks``, those of 22d's four ranks.
 
 Every timed kernel in phases 3, 7 and 8 has ``nvidia-smi``'s SM clock
 (now and max), power draw and temperature, sampled right before and after
@@ -2101,6 +2130,7 @@ def reset_flash_counts():
     from repro_torch.kernels.flash_attention import flash_attention
 
     flash_attention.launches = 0
+    flash_attention.launches_sharded = 0
     for name in flash_attention.launches_by_instance:
         flash_attention.launches_by_instance[name] = 0
 
@@ -3153,6 +3183,490 @@ def _collective_runs(torch, device) -> int:
     return launches
 
 
+#: 22b's prefill and decode shapes: phase 19a's sequence, 19b's serving batch
+SHARDED_PREFILL = 8192
+SHARDED_BATCH, SHARDED_PROMPT, SHARDED_STEPS = 4, 128, 4
+#: 22a's cells: gemma2-2b's three shapes on 16x16; on 2x16x16 only decode
+#: (the 3-d mesh's train and prefill cells spend minutes in DTensor's
+#: sharding propagation on the host)
+DRYRUN_CELLS = (("train_4k", False), ("prefill_32k", False), ("decode_32k", False),
+                ("decode_32k", True))
+
+
+def phase_dryrun_fake() -> list:
+    """22a: gemma2-2b's dry-run cells on a fake world (nothing allocated:
+    meta tensors, a process group that communicates nothing), each
+    report's three terms against the ``H100`` record."""
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import H100, fake_world, mesh_device_type
+
+    out = []
+    for shape, multi_pod in DRYRUN_CELLS:
+        t = time.perf_counter()
+        with fake_world(512 if multi_pod else 256):
+            report, _ = lower_cell(GEMMA2, shape, multi_pod=multi_pod)
+        wall = time.perf_counter() - t
+        d = report.to_dict()
+        mem = d["memory_per_device"]
+        print(f"# [22a dry run] {GEMMA2} x {shape} on {d['mesh']} ({mesh_device_type()} mesh, "
+              f"a fake world of {d['chips']}): compute {d['t_compute']:.4f} s, memory "
+              f"{d['t_memory']:.4f} s, collective {d['t_collective']:.4f} s -> "
+              f"{d['bottleneck']}; useful FLOPs ratio {d['useful_flops_ratio']:.3f}, roofline "
+              f"fraction {d['roofline_fraction']:.4f}; arguments "
+              f"{mem['argument_bytes'] / 2**30:.2f} GiB per device of "
+              f"{H100.HBM_BYTES / 1e9:.0f} GB (peak predicted {mem['peak_bytes'] / 2**30:.2f} "
+              f"GiB); collectives {d['collective_ops']}; wall {wall:.2f} s")
+        require(d["flops_per_device"] > 0 and d["collective_bytes_per_device"] > 0
+                and 0 < mem["argument_bytes"] < H100.HBM_BYTES,
+                f"[22a] {shape} on {d['mesh']}: FLOPs, collectives and arguments that fit")
+        out.append(dict(shape=shape, mesh=d["mesh"], wall=wall,
+                        **{k: d[k] for k in ("t_compute", "t_memory", "t_collective",
+                                             "bottleneck", "useful_flops_ratio",
+                                             "roofline_fraction")},
+                        argument_bytes=mem["argument_bytes"], peak_bytes=mem["peak_bytes"]))
+    return out
+
+
+def synced(torch, fn) -> tuple[object, float]:
+    """``fn()`` and its wall on the host clock, fenced by a synchronize."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def sharded_launches(flash, fn):
+    """``fn()``, and the flash launches it made on DTensors' local shards;
+    holds that each was a ``wgmma_bf16`` launch, counted by the wrapper."""
+    sharded, wgmma = flash.launches_sharded, flash.launches_by_instance["wgmma_bf16"]
+    out = fn()
+    n = flash.launches_sharded - sharded
+    require(flash.launches_by_instance["wgmma_bf16"] - wgmma == n,
+            f"[22] the {n} launches on local shards were the bf16 tensor-core kernel's")
+    return out, n
+
+
+def phase_sharded_step(torch, mesh) -> dict:
+    """22b: gemma2-2b at full width in bf16 with its weights as DTensors on
+    the 1x1 NCCL mesh (placed by ``param_specs``), prefill at B 1, S 8192
+    and decode at batch 4 after a 128-token prompt, against the plain
+    model on the same weights: bit-equal (one rank: the same kernels on
+    the same bytes), the flash kernel launched on the local shards
+    (``local_map``). The plain model's prefill first: each of its flash
+    calls held at phase 7's bf16 check against the plain version in f32
+    on the same values, its logits within phase 19's bf16 bound of the
+    plain path's (``impl="ref"``)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import make_decode_step, make_prefill_step
+    from repro_torch.models import init_params, prefill
+    from repro_torch.parallel import batch_specs, cache_specs, distribute, param_specs
+
+    cfg = get_config(GEMMA2)
+    t0 = time.perf_counter()
+    plain = init_params(cfg, seed=22)
+    sharded = distribute(copy.deepcopy(plain), param_specs(plain, cfg, mesh), mesh)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    toks = torch.randint(0, cfg.vocab_size, (1, SHARDED_PREFILL), device="cuda", generator=gen)
+    batch = {"tokens": toks}
+    dbatch = distribute(batch, batch_specs(mesh, batch), mesh)
+
+    def held(got, want):
+        got = got.to_local() if hasattr(got, "to_local") else got
+        want32 = want.float()
+        err = float((got.float() - want32).abs().max() / want32.abs().max())
+        return err, bool(torch.equal(got, want)), bool(torch.isfinite(got.float()).all())
+
+    step = make_prefill_step(cfg)
+    step(plain, batch)                                     # warm: build and first calls
+    want, t_plain = synced(torch, lambda: step(plain, batch))
+    # the kernel at this shape: every call of the plain model's prefill
+    # held alone, then the logits against the plain path's
+    records = []
+    with attention_as("kernel", records):
+        again = step(plain, batch)
+    require(len(records) == cfg.n_layers and all(r[3] for r in records),
+            f"[22b] each of the prefill's {len(records)} flash calls == plain in f32 at "
+            "phase 7's bf16 check")
+    require(bool(torch.equal(again, want)), "[22b] the held calls gave the prefill's logits")
+    del again
+    ref, t_ref = synced(torch, lambda: make_prefill_step(cfg, impl="ref")(plain, batch))
+    err_ref, _, finite_ref = held(want, ref)
+    del ref
+    local = [r for r in records if r[0] == cfg.window]
+    glob = [r for r in records if r[0] != cfg.window]
+    print(f"# [22b gemma2-2b bf16 prefill, plain model] B 1, S {SHARDED_PREFILL}: every flash "
+          f"call ({len(records)}) == plain in f32 at phase 7's bf16 check (worst max |err| "
+          f"local {max(r[1] for r in local):.3e}, global {max(r[1] for r in glob):.3e}; RMS "
+          f"err / RMS local {max(r[2] for r in local):.3e}, global "
+          f"{max(r[2] for r in glob):.3e}, bound 1e-2); logits == the plain path's "
+          f"(impl=\"ref\", {t_ref * 1e3:.1f} ms) within {err_ref:.3e} of max |logit| (bound "
+          f"{BF16_DECODE_BOUND})")
+    require(finite_ref and err_ref <= BF16_DECODE_BOUND, f"[22b] the plain model's prefill "
+            f"within {BF16_DECODE_BOUND} of the plain path's logits ({err_ref:.3e})")
+    reset_flash_counts()
+    (got, t_sharded), launched = sharded_launches(
+        flash_attention, lambda: synced(torch, lambda: step(sharded, dbatch)))
+    err, equal, finite = held(got, want)
+    print(f"# [22b gemma2-2b bf16 prefill, 1x1 NCCL mesh] B 1, S {SHARDED_PREFILL}: DTensor "
+          f"logits {'bit-equal to' if equal else 'differ from'} the plain model's, max |d| / "
+          f"max |logit| {err:.3e}; step {t_plain * 1e3:.1f} ms plain, {t_sharded * 1e3:.1f} "
+          f"ms as DTensors; flash launches through local_map {launched} (placements "
+          f"{[str(p) for p in got.placements]})")
+    require(finite and equal, f"[22b] sharded prefill bit-equal to the plain model's logits "
+            f"({err:.3e})")
+    require(launched == cfg.n_layers, f"[22b] the prefill launched the flash kernel once a "
+            f"layer through local_map ({launched})")
+    out = dict(prefill=dict(err=err, equal=equal, plain_s=t_plain, sharded_s=t_sharded,
+                            err_ref=err_ref, calls_held=len(records)))
+    del want, got
+
+    # decode: the plain model's 128-token prompt, its cache copied onto the mesh
+    prompt = torch.randint(0, cfg.vocab_size, (SHARDED_BATCH, SHARDED_PROMPT), device="cuda",
+                           generator=gen)
+    _, cache = prefill(cfg, plain, prompt, max_len=SHARDED_PROMPT + SHARDED_STEPS)
+    dcache = {"segments": [{k: v.clone() for k, v in seg.items()} for seg in cache["segments"]],
+              "pos": cache["pos"]}
+    dcache = distribute(dcache, cache_specs(cfg, mesh, dcache), mesh)
+    decode = make_decode_step(cfg)
+    errs, equal, times, launched_decode = [], True, [], 0
+    for i in range(SHARDED_STEPS):
+        tok = torch.randint(0, cfg.vocab_size, (SHARDED_BATCH, 1), device="cuda", generator=gen)
+        (want, cache), tp = synced(torch, lambda: decode(plain, cache, {"tokens": tok}))
+        dtok = distribute({"t": tok}, batch_specs(mesh, {"t": tok}), mesh)["t"]
+        ((got, dcache), ts), n = sharded_launches(flash_attention, lambda: synced(
+            torch, lambda: decode(sharded, dcache, {"tokens": dtok})))
+        e, eq, fin = held(got, want)
+        require(fin and eq, f"[22b] decode step {i} bit-equal to the plain model's ({e:.3e})")
+        errs.append(e)
+        equal &= eq
+        times.append((tp, ts))
+        launched_decode += n
+    print(f"# [22b gemma2-2b bf16 decode, 1x1 NCCL mesh] batch {SHARDED_BATCH} after a "
+          f"{SHARDED_PROMPT}-token prompt, {SHARDED_STEPS} steps: logits "
+          f"{'bit-equal' if equal else 'not bit-equal'}, max |d| / max |logit| per step "
+          + ", ".join(f"{e:.3e}" for e in errs) + "; step ms plain / DTensor "
+          + ", ".join(f"{a * 1e3:.1f}/{b * 1e3:.1f}" for a, b in times)
+          + f"; flash launches through local_map {launched_decode}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    require(launched_decode == SHARDED_STEPS * cfg.n_layers,
+            f"[22b] each decode step launched the flash kernel once a layer ({launched_decode})")
+    out["decode"] = dict(errs=errs, equal=equal, times=times)
+    out["launches_sharded"] = flash_attention.launches_sharded
+    del plain, sharded, cache, dcache
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_analysis_vs_card(torch, mesh) -> dict:
+    """22c: phase 20c's train step (gemma2-2b bf16, B 1, S 8192, remat,
+    ``ce_chunk`` 8) counted by ``lower_cell`` at world size 1 (meta
+    DTensors on the 1x1 mesh), then run on the card: FLOPs, bytes and the
+    ``H100`` roofline bound beside the measured step, the predicted peak
+    beside ``max_memory_allocated``. The ratios are findings, not gates."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import init_train_state, make_train_step
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.models import init_params, tuning
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.trainer import to_device
+
+    cfg = get_config(GEMMA2)
+    s = 8192
+    tuning.set_tuning(ce_chunk=8)
+    try:
+        t = time.perf_counter()
+        report, _ = lower_cell(GEMMA2, ShapeSpec("train_8k_b1", s, 1, "train"), mesh=mesh)
+        t_analysis = time.perf_counter() - t
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(init_params(cfg, seed=25))
+        batch = to_device(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                                 global_batch=1, seed=25)).batch_at(0), "cuda")
+        step = make_train_step(cfg, OptimizerConfig(lr=GEMMA2_TRAIN_LR, warmup_steps=1,
+                                                    weight_decay=0.1))
+        times = []
+        for _ in range(4):
+            (state, m), dt = synced(torch, lambda: step(state, batch))
+            times.append(dt)
+        peak = torch.cuda.max_memory_allocated()
+        require(bool(torch.isfinite(m["loss"])), "[22c] a finite loss")
+    finally:
+        tuning.reset_tuning()
+    wall = float(np.mean(times[1:]))
+    d = report.to_dict()
+    pred = d["memory_per_device"]["peak_bytes"]
+    print(f"# [22c analysis vs card] {GEMMA2} bf16 train step, B 1, S {s}, remat, ce_chunk 8: "
+          f"counted {d['flops_per_device']:.4e} FLOP, {d['bytes_per_device']:.4e} B accessed, "
+          f"collectives {d['collective_ops']} (1x1 mesh); H100 bound "
+          f"{report.step_time_bound:.4f} s by {d['bottleneck']} (compute {d['t_compute']:.4f} s, "
+          f"memory {d['t_memory']:.4f} s); measured step " + ", ".join(f"{x:.4f}" for x in times)
+          + f" s (mean of the last 3 {wall:.4f} s, {wall / report.step_time_bound:.2f}x the "
+          f"bound); peak predicted {pred / 2**30:.2f} GiB, max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB (ratio {pred / peak:.3f}); analysis {t_analysis:.2f} s")
+    del state, batch
+    torch.cuda.empty_cache()
+    return dict(flops=d["flops_per_device"], bytes=d["bytes_per_device"],
+                bound_s=report.step_time_bound, bottleneck=d["bottleneck"], times=times,
+                wall=wall, peak_pred=pred, peak=peak, analysis_s=t_analysis)
+
+
+def sharding_child(torch, out_path: str) -> None:
+    """Phase 22's body, in its own process: the fake world of 22a, then a
+    one-rank NCCL group for 22b and 22c, each destroyed before the next;
+    its results go to ``out_path`` as JSON."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    res = {"a": phase_dryrun_fake()}
+    with tempfile.TemporaryDirectory() as rdv:
+        dist.init_process_group("nccl", init_method=f"file://{rdv}/rdv", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_local_mesh()
+            res["b"] = phase_sharded_step(torch, mesh)
+            res["c"] = phase_analysis_vs_card(torch, mesh)
+        finally:
+            dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(res))
+
+
+#: 22d: four gloo ranks sharing the card, mesh 2x2 (data x model), each
+#: holding a quarter of gemma2-2b's attention: batch 2 over ``data``, the
+#: 8/4 heads over ``model``
+GLOO_RANKS, GLOO_MESH = 4, (2, 2)
+GLOO_BATCH, GLOO_PREFILL, GLOO_PROMPT, GLOO_STEPS = 2, 2048, 32, 2
+
+
+def local_part(full, dt):
+    """The part of ``full`` (a plain tensor of ``dt``'s global shape) that
+    this rank's shard of the DTensor ``dt`` holds: each sharded mesh dim,
+    in mesh order, keeps its coordinate's chunk, as DTensor splits."""
+    import torch
+
+    mesh, coord = dt.device_mesh, dt.device_mesh.get_coordinate()
+    for i, p in enumerate(dt.placements):
+        if p.is_shard():
+            full = torch.chunk(full, mesh.size(i), dim=p.dim)[coord[i]]
+    return full
+
+
+def blocking_gather_over_gloo(torch):
+    """torch 2.11's functional all-gather, the one DTensor issues
+    (``_c10d_functional.all_gather_into_tensor``), crashes in
+    ``wait_tensor`` over gloo on CUDA tensors (a segfault on the card,
+    f32 and bf16 alike), while c10d's own ``all_gather_into_tensor`` and
+    the functional all-reduce and reduce-scatter run there. This replaces
+    the op's CUDA kernel, in this process, by c10d's blocking all-gather
+    over the same group: the same values, no work left for ``wait_tensor``
+    to wait on. Returns the registration, which lasts as long as it is
+    held."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def gather(inp, group_size, group_name):
+        out = inp.new_empty((inp.shape[0] * group_size, *inp.shape[1:]))
+        dist.all_gather_into_tensor(out, inp.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", gather, "CUDA")
+    return lib
+
+
+def gloo_rank(torch, rank: int, rdv: str, out_path: str) -> None:
+    """22d, one rank of four gloo ranks on the one card, mesh 2x2 of type
+    ``"cuda"`` (NCCL takes one rank per device): gemma2-2b at full width
+    in bf16, its weights as DTensors by ``param_specs``, a prefill at
+    batch 2, S 2048 and decode steps on a cache placed by ``cache_specs``.
+    The flash kernel runs on each rank's local shards: every local call's
+    q and k shapes are recorded, and the call is held at phase 7's bf16
+    check against the plain version in f32 on the same values; this
+    rank's part of the logits against the unsharded model's (flash on
+    whole tensors) and the plain path's (``impl="ref"``), at phase 19's
+    bf16 bound."""
+    import faulthandler
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import make_decode_step, make_prefill_step
+    from repro_torch.models import attention, init_params, prefill
+    from repro_torch.models.common import is_dtensor
+    from repro_torch.parallel import batch_specs, cache_specs, distribute, param_specs
+
+    faulthandler.enable()      # a crash in a rank prints its Python stack
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=GLOO_RANKS)
+    gather = blocking_gather_over_gloo(torch)
+    try:
+        mesh = init_device_mesh("cuda", GLOO_MESH, mesh_dim_names=("data", "model"))
+        cfg = get_config(GEMMA2)
+        plain = init_params(cfg, seed=26)
+        sharded = distribute(copy.deepcopy(plain), param_specs(plain, cfg, mesh), mesh)
+        gen = torch.Generator(device="cuda").manual_seed(26)
+        toks = torch.randint(0, cfg.vocab_size, (GLOO_BATCH, GLOO_PREFILL), device="cuda",
+                             generator=gen)
+        kernel_op, calls = attention.attention_op, []
+
+        def op(q, k, v, *, impl="auto", **kw):
+            # the model's calls arrive as DTensors and go to local_map,
+            # which calls back here with each rank's local shards
+            out = kernel_op(q, k, v, impl=impl, **kw)
+            if not is_dtensor(q):
+                ref32 = attention.attention_reference(q.float(), k.float(), v.float(), **kw)
+                calls.append((tuple(q.shape), tuple(k.shape), *bf16_held(out, ref32)))
+            return out
+
+        def rel(got, want):
+            want = local_part(want, got).float()
+            return float((got.to_local().float() - want).abs().max() / want.abs().max())
+
+        res = {"rank": rank}
+        step = make_prefill_step(cfg)
+        batch = {"tokens": toks}
+        want = step(plain, batch)
+        ref = make_prefill_step(cfg, impl="ref")(plain, batch)
+        dbatch = distribute(batch, batch_specs(mesh, batch), mesh)
+        attention.attention_op = op
+        try:
+            got, n = sharded_launches(flash_attention, lambda: step(sharded, dbatch))
+        finally:
+            attention.attention_op = kernel_op
+        res["prefill"] = dict(err=rel(got, want), err_ref=rel(got, ref), launches=n,
+                              calls=calls[:],
+                              placements=[str(p) for p in got.placements],
+                              finite=bool(torch.isfinite(got.to_local().float()).all()))
+        del want, ref, got
+
+        prompt = toks[:, :GLOO_PROMPT]
+        _, cache = prefill(cfg, plain, prompt, max_len=GLOO_PROMPT + GLOO_STEPS)
+        dcache = {"segments": [{k: v.clone() for k, v in seg.items()}
+                               for seg in cache["segments"]], "pos": cache["pos"]}
+        dcache = distribute(dcache, cache_specs(cfg, mesh, dcache), mesh)
+        res["cache_local"] = list(dcache["segments"][0]["k"].to_local().shape)
+        decode, res["decode"] = make_decode_step(cfg), []
+        for i in range(GLOO_STEPS):
+            tok = toks[:, GLOO_PROMPT + i:GLOO_PROMPT + i + 1]
+            want, cache = decode(plain, cache, {"tokens": tok})
+            dtok = distribute({"t": tok}, batch_specs(mesh, {"t": tok}), mesh)["t"]
+            attention.attention_op, calls[:] = op, []
+            try:
+                (got, dcache), n = sharded_launches(
+                    flash_attention, lambda: decode(sharded, dcache, {"tokens": dtok}))
+            finally:
+                attention.attention_op = kernel_op
+            res["decode"].append(dict(
+                err=rel(got, want), launches=n, calls=calls[:],
+                finite=bool(torch.isfinite(got.to_local().float()).all())))
+    finally:
+        dist.destroy_process_group()
+        del gather
+    Path(out_path).write_text(json.dumps(res))
+
+
+def phase_gloo_ranks() -> dict:
+    """22d: :func:`gloo_rank` in four processes at once, each awaited at
+    most 600 s and all killed if one is not done; their results, held."""
+    import tempfile
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [Path(tmp) / f"rank{r}.json" for r in range(GLOO_RANKS)]
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--phase-22-rank", str(r), f"{tmp}/rdv", str(outs[r])])
+                 for r in range(GLOO_RANKS)]
+        deadline = time.monotonic() + 600
+        try:
+            rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        require(all(rc == 0 for rc in rcs) and all(o.exists() for o in outs),
+                f"[22d] the gloo ranks exited {rcs}")
+        ranks = [json.loads(o.read_text()) for o in outs]
+    from repro_torch.configs import get_config
+
+    cfg = get_config(GEMMA2)
+    heads = (cfg.n_heads // GLOO_MESH[1], cfg.n_kv_heads // GLOO_MESH[1])
+
+    def on_heads(c):
+        return (c[0][2], c[1][2]) == heads
+
+    for r in ranks:
+        pre = r["prefill"]
+        calls = pre["calls"] + [c for d in r["decode"] for c in d["calls"]]
+        print(f"# [22d gemma2-2b bf16, 4 gloo ranks on one card, 2x2 cuda mesh] rank "
+              f"{r['rank']}: prefill B {GLOO_BATCH}, S {GLOO_PREFILL}: logits part "
+              f"{pre['placements']} == unsharded within {pre['err']:.3e}, == plain path "
+              f"within {pre['err_ref']:.3e} of max |logit|; decode steps after a "
+              f"{GLOO_PROMPT}-token prompt (cache shard {r['cache_local']}) within "
+              + ", ".join(f"{d['err']:.3e}" for d in r["decode"])
+              + f" (bound {BF16_DECODE_BOUND}); flash launches on local shards "
+              f"{pre['launches']} + {sum(d['launches'] for d in r['decode'])}, on head "
+              f"shards {sum(map(on_heads, pre['calls']))} + "
+              f"{sum(on_heads(c) for d in r['decode'] for c in d['calls'])}, local q/k "
+              f"shapes {sorted({(tuple(c[0]), tuple(c[1])) for c in calls})}, worst max "
+              f"|err| {max(c[2] for c in calls):.3e}, RMS err / RMS "
+              f"{max(c[3] for c in calls):.3e} (phase 7's bf16 check)")
+        errs = [pre["err"], pre["err_ref"]] + [d["err"] for d in r["decode"]]
+        require(pre["finite"] and all(d["finite"] for d in r["decode"])
+                and max(errs) <= BF16_DECODE_BOUND,
+                f"[22d] rank {r['rank']}: sharded logits within {BF16_DECODE_BOUND} ({errs})")
+        require(pre["launches"] == cfg.n_layers
+                and all(d["launches"] == cfg.n_layers for d in r["decode"]),
+                f"[22d] rank {r['rank']}: the flash kernel once a layer on local shards")
+        require(len(calls) == cfg.n_layers * (1 + GLOO_STEPS) and all(c[4] for c in calls),
+                f"[22d] rank {r['rank']}: every local flash call at phase 7's bf16 check")
+        # a batch shard always; a head shard in every decode call (the
+        # cache's KV heads are split) and in the prefill's first layer.
+        # Later prefill layers get what DTensor's strategy gives: head
+        # shards with torch 2.11 on the card; with torch 2.13 on the CPU,
+        # q and k as partial sums over ``model``, which local_map's
+        # placements reduce whole (all heads on each rank)
+        require(all(c[0][0] == c[1][0] == GLOO_BATCH // GLOO_MESH[0] for c in calls)
+                and on_heads(pre["calls"][0])
+                and all(on_heads(c) for d in r["decode"] for c in d["calls"]),
+                f"[22d] rank {r['rank']}: the kernel ran on batch and head shards")
+    print(f"# [22d] {time.perf_counter() - t:.2f} s")
+    return dict(ranks=ranks, launches=sum(r["prefill"]["launches"] + sum(
+        d["launches"] for d in r["decode"]) for r in ranks))
+
+
+def phase_sharding(torch) -> dict:
+    """Phase 22, sharding and launch analysis: 22a-c in a child process, so
+    that no process group outlives it beside phase 21's rank groups, then
+    22d's four gloo ranks."""
+    import tempfile
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "phase22.json"
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase-22",
+                               str(out)], timeout=900)
+        require(proc.returncode == 0 and out.exists(),
+                f"[22] the phase's process exited {proc.returncode}")
+        res = json.loads(out.read_text())
+    require(res["b"]["launches_sharded"] > 0, "[22b] flash launches through local_map")
+    res["d"] = phase_gloo_ranks()
+    print(f"# [22] {time.perf_counter() - t:.2f} s")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3161,6 +3675,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:2] == ["--phase-22"]:          # phase 22's own process
+        sharding_child(torch, sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--phase-22-rank"]:     # one of 22d's gloo ranks
+        gloo_rank(torch, int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
     t0 = time.perf_counter()
     phase_device(torch)
     phase_build()
@@ -3220,6 +3740,10 @@ def main() -> int:
     # real collectives on torch.distributed; the fit's candidates sample
     # through sim_scan
     kernel["launches_collective_calibrate"] = phase_collectives(torch)
+    # sharding and launch analysis: bf16 flash on DTensors' local shards
+    sharding = phase_sharding(torch)
+    flash_bf16["launches_sharded"] = sharding["b"]["launches_sharded"]
+    flash_bf16["launches_sharded_ranks"] = sharding["d"]["launches"]
     print(json.dumps({"kernels": [kernel, flash, flash_bf16, ssd, ssd_bf16]}))
     print(f"# total {time.perf_counter() - t0:.1f} s")
     print(smi())

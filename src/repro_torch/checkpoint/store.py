@@ -36,12 +36,19 @@ class CheckpointConfig:
     async_save: bool = True
 
 
-def _flatten(tree) -> list:
+def _flatten(tree, is_leaf=lambda x: False) -> list:
+    if is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _flatten(tree[k])]
+        return [leaf for k in sorted(tree) for leaf in _flatten(tree[k], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in _flatten(v)]
+        return [leaf for v in tree for leaf in _flatten(v, is_leaf)]
     return [tree]
+
+
+def _is_sharding(x) -> bool:
+    """A ``(mesh, spec)`` pair of a ``shardings`` tree."""
+    return isinstance(x, tuple) and len(x) == 2 and hasattr(x[0], "mesh_dim_names")
 
 
 def _unflatten(like, leaves):
@@ -156,11 +163,18 @@ class CheckpointStore:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like_tree, step: int | None = None):
+    def restore(self, like_tree, step: int | None = None, shardings=None):
         """Restore into the structure of ``like_tree``: ``(tree, step)``,
         each leaf a CPU tensor in the type of ``like_tree``'s leaf, or
         ``(None, None)`` when there is no checkpoint. A leaf count or shape
-        that differs from ``like_tree``'s raises ``ValueError``."""
+        that differs from ``like_tree``'s raises ``ValueError``.
+
+        ``shardings``, a tree matching ``like_tree`` whose leaves are
+        ``(mesh, spec)`` pairs (a ``DeviceMesh`` and a
+        :class:`repro_torch.parallel.P`), places each leaf as a DTensor
+        holding this rank's shard, the elastic re-mesh path (the
+        reference places each leaf by its ``NamedSharding``), on the
+        mesh's device type."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -184,4 +198,13 @@ class CheckpointStore:
                 if isinstance(l, torch.Tensor):
                     t = t.to(l.dtype)
                 restored.append(t)
+        if shardings is not None:
+            from ..parallel import distribute_tensor
+
+            placed = _flatten(shardings, _is_sharding)
+            if len(placed) != len(restored):
+                raise ValueError(f"restore: {len(placed)} shardings for "
+                                 f"{len(restored)} leaves")
+            restored = [distribute_tensor(t, spec, mesh) for t, (mesh, spec)
+                        in zip(restored, placed)]
         return _unflatten(like_tree, iter(restored)), step

@@ -38,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import sys
 from pathlib import Path
 
 import torch
@@ -243,6 +244,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, logit_cap=0.0,
                                    kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is not None and any(isinstance(t, dtensor.DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention: a DTensor's data_ptr is not a device "
+                        "pointer; launch on its local shards (attention_op does, "
+                        "through local_map)")
     refuse_grad("flash_attention", q, k, v)
     d = q.shape[3]
     q, k, v = pad_head_dim(q, k, v)
@@ -273,3 +279,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, logit_cap=0.0,
 flash_attention.launches = 0
 flash_attention.launches_by_instance = {"tf32x3": 0, "wgmma_bf16": 0, "simt": 0}
 flash_attention.launches_padded = 0
+#: launches on the local shards of DTensors, added by
+#: ``repro_torch.models.attention._on_local_shards`` from ``launches``
+#: across its local calls; also in ``launches``
+flash_attention.launches_sharded = 0

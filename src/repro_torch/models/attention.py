@@ -13,6 +13,10 @@ to the next, exactly), and so does a CUDA call that autograd would want a
 gradient from, since the kernels have no backward pass: training runs
 ``impl="ref"``.
 
+On DTensors (weights placed by :mod:`repro_torch.parallel`) both routes
+run on each rank's local shards through ``local_map``
+(:func:`_on_local_shards`).
+
 ``window``, ``q_offset`` and ``kv_len`` are Python ints: a layer's
 local/global choice is made on the host (where the reference selects it
 under trace), and the decode position is an int in the cache, so no
@@ -26,7 +30,8 @@ import math
 import torch
 from torch import nn
 
-from .common import ModelConfig, apply_rope, dense_init, rms_norm, rotary_embedding, softcap
+from .common import (ModelConfig, apply_rope, dense_init, is_dtensor, merge_dims, rms_norm,
+                     rotary_embedding, softcap, split_dim)
 
 __all__ = [
     "Attention",
@@ -161,18 +166,61 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
+    kw = dict(causal=causal, window=window, logit_cap=logit_cap, q_offset=q_offset,
+              kv_len=kv_len)
+    if is_dtensor(q):
+        return _on_local_shards(q, k, v, impl, kw)
     if impl == "ref" or (impl == "auto" and q.device.type == "cpu"):
-        return attention_reference(q, k, v, causal=causal, window=window,
-                                   logit_cap=logit_cap, q_offset=q_offset,
-                                   kv_len=kv_len)
+        return attention_reference(q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"attention_op(impl={impl!r}): the flash kernel "
                          f"runs on CUDA tensors, got {q.device}")
     from ..kernels import ops as kops
 
-    return kops.flash_attention(q, k, v, causal=causal, window=window,
-                                logit_cap=logit_cap, q_offset=q_offset,
-                                kv_len=kv_len)
+    return kops.flash_attention(q, k, v, **kw)
+
+
+def _on_local_shards(q, k, v, impl: str, kw: dict):
+    """Attention of DTensor q, k and v on each rank's local shards, through
+    ``local_map``: the flash kernel on the card, so that it never receives
+    a DTensor (whose ``data_ptr`` is not a device pointer), and the plain
+    path as well, which spares DTensor's sharding propagation over the
+    5-d score einsums. Attention is independent per batch row and per
+    head, and GQA groups stay whole when q's and the KV heads are split
+    alike and evenly, so each mesh dim shards batch (dim 0) or heads
+    (dim 2) of all three, as k and v are placed (the decode cache, the
+    large operand, stays where it is) or else as q is, where the sizes
+    divide; any other mesh dim is gathered, and each of its ranks
+    computes its rows' whole attention (gemma2-2b's 4 KV heads over a
+    16-wide ``model`` axis: the dry run's useful-FLOPs ratio shows it).
+    The flash wrapper's launches during the local calls also count in
+    ``flash_attention.launches_sharded``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, places, split = q.device_mesh, [], {0: 1, 2: 1}
+    for i, (pq, pk, pv) in enumerate(zip(q.placements, k.placements, v.placements)):
+        target = Replicate()
+        for p in (pk if pk == pv else None, pq):
+            if isinstance(p, Shard) and p.dim in split:
+                n = split[p.dim] * mesh.size(i)
+                if q.shape[p.dim] % n == 0 and k.shape[p.dim] % n == 0:
+                    target, split[p.dim] = p, n
+                    break
+        places.append(target)
+    q, k, v = (t.redistribute(mesh, places) for t in (q, k, v))
+    from ..kernels import ops as kops
+
+    flash = kops.flash_attention
+
+    def local(ql, kl, vl):
+        before = flash.launches
+        out = attention_op(ql, kl, vl, impl=impl, **kw)
+        flash.launches_sharded += flash.launches - before
+        return out
+
+    return local_map(local, out_placements=places, in_placements=(places,) * 3,
+                     device_mesh=mesh)(q, k, v)
 
 
 Q_CHUNK = 1024  # reference-path query blocking (memory control on long seqs)
@@ -186,7 +234,7 @@ def _attention_dense(q, k, v, *, causal, window, logit_cap, q_offset, kv_len):
     t = k.shape[1]
     hkv = k.shape[2]
     g = h // hkv
-    qg = q.reshape(b, s, hkv, g, dh)
+    qg = split_dim(q, 2, (hkv, g))
     scale = 1.0 / math.sqrt(dh)
     # the product is taken in q's type and then cast, as in the reference:
     # in bf16 the logits are rounded to bf16 before the soft-cap
@@ -214,7 +262,7 @@ def _attention_dense(q, k, v, *, causal, window, logit_cap, q_offset, kv_len):
     else:
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
-    return out.reshape(b, s, h, dh)
+    return merge_dims(out, 2)
 
 
 def attention_reference(q, k, v, *, causal=True, window=None, logit_cap=0.0,
@@ -240,11 +288,10 @@ def attention_reference(q, k, v, *, causal=True, window=None, logit_cap=0.0,
 # ---------------------------------------------------------------------------
 
 def _project_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor):
-    b, s, d = x.shape
     hd = cfg.hd
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
+    q = split_dim(x @ p.wq, -1, (cfg.n_heads, hd))
+    k = split_dim(x @ p.wk, -1, (cfg.n_kv_heads, hd))
+    v = split_dim(x @ p.wv, -1, (cfg.n_kv_heads, hd))
     return q, k, v
 
 
@@ -281,12 +328,12 @@ def attn_block(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
                            logit_cap=cfg.attn_softcap, impl=impl)
     else:
         t = kv.shape[1]
-        q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
-        k = (kv @ p.wk).reshape(b, t, cfg.n_kv_heads, hd)
-        v = (kv @ p.wv).reshape(b, t, cfg.n_kv_heads, hd)
+        q = split_dim(x @ p.wq, -1, (cfg.n_heads, hd))
+        k = split_dim(kv @ p.wk, -1, (cfg.n_kv_heads, hd))
+        v = split_dim(kv @ p.wv, -1, (cfg.n_kv_heads, hd))
         out = attention_op(q, k, v, causal=False, logit_cap=cfg.attn_softcap,
                            impl=impl)
-    return out.reshape(b, s, cfg.n_heads * hd) @ p.wo
+    return merge_dims(out, 2) @ p.wo
 
 
 def attn_decode_step(cfg: ModelConfig, p: Attention, x: torch.Tensor,
@@ -311,7 +358,7 @@ def attn_decode_step(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                        window=_layer_window(cfg, is_global),
                        logit_cap=cfg.attn_softcap, q_offset=pos,
                        kv_len=pos + 1, impl=impl)
-    out = out.reshape(b, s, cfg.n_heads * hd) @ p.wo
+    out = merge_dims(out, 2) @ p.wo
     return out, cache_k, cache_v
 
 
@@ -324,9 +371,9 @@ def _mla_q(cfg: ModelConfig, p: MLA, x: torch.Tensor):
     nh, hd, rd = cfg.n_heads, cfg.hd, cfg.rope_head_dim
     if cfg.q_lora_rank:
         cq = rms_norm(x @ p.w_dq, p.q_norm)
-        q = (cq @ p.w_uq).reshape(b, s, nh, hd + rd)
+        q = split_dim(cq @ p.w_uq, -1, (nh, hd + rd))
     else:
-        q = (x @ p.wq).reshape(b, s, nh, hd + rd)
+        q = split_dim(x @ p.wq, -1, (nh, hd + rd))
     return q[..., :hd], q[..., hd:]
 
 
@@ -345,15 +392,15 @@ def mla_block(cfg: ModelConfig, p: MLA, x: torch.Tensor, positions=None,
     cos, sin = rotary_embedding(positions, rd, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope, cos, sin)
-    k_nope = (c_kv @ p.w_uk).reshape(b, s, nh, hd)
-    v = (c_kv @ p.w_uv).reshape(b, s, nh, hd)
+    k_nope = split_dim(c_kv @ p.w_uk, -1, (nh, hd))
+    v = split_dim(c_kv @ p.w_uv, -1, (nh, hd))
     # Concatenate nope|rope components; rope key shared across heads (MQA-like)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, s, nh, rd)], dim=-1)
     # pad v to q's feature dim for the shared attention op, then slice back
     vp = torch.cat([v, v.new_zeros((b, s, nh, rd))], dim=-1)
     out = attention_op(q, k, vp, causal=True, impl=impl)[..., :hd]
-    return out.reshape(b, s, nh * hd) @ p.wo
+    return merge_dims(out, 2) @ p.wo
 
 
 def mla_decode_step(cfg: ModelConfig, p: MLA, x: torch.Tensor,
@@ -375,12 +422,12 @@ def mla_decode_step(cfg: ModelConfig, p: MLA, x: torch.Tensor,
     cache_ckv.narrow(1, pos, 1).copy_(c_kv)
     cache_krope.narrow(1, pos, 1).copy_(k_rope[:, :, 0])
     t = cache_ckv.shape[1]
-    k_nope = (cache_ckv @ p.w_uk).reshape(b, t, nh, hd)
-    v = (cache_ckv @ p.w_uv).reshape(b, t, nh, hd)
+    k_nope = split_dim(cache_ckv @ p.w_uk, -1, (nh, hd))
+    v = split_dim(cache_ckv @ p.w_uv, -1, (nh, hd))
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, cache_krope[:, :, None, :].expand(b, t, nh, rd)], dim=-1)
     vp = torch.cat([v, v.new_zeros((b, t, nh, rd))], dim=-1)
     out = attention_op(q, k, vp, causal=False, q_offset=pos, kv_len=pos + 1,
                        impl=impl)[..., :hd]
-    out = out.reshape(b, s, nh * hd) @ p.wo
+    out = merge_dims(out, 2) @ p.wo
     return out, cache_ckv, cache_krope

@@ -7,14 +7,23 @@ under ``lax.scan``. Weight matrices keep the reference's ``(in, out)``
 layout, so ``x @ w`` is the same product in both packages.
 
 The reference's ``shard_hint`` is not ported: it is a no-op off a device
-mesh, and sharding is a later slice of the port. ``with_layer_axis`` (a
-``vmap`` over stacked layers) has no counterpart: the port draws each
-layer's weights in turn.
+mesh, and on a mesh DTensor derives the activations' layouts from the
+weights' (:mod:`repro_torch.parallel`). ``with_layer_axis`` (a ``vmap`` over
+stacked layers) has no counterpart: the port draws each layer's weights
+in turn.
+
+The model runs on plain tensors and on DTensors (weights placed by
+:func:`repro_torch.parallel.distribute`). Where a view splits a sharded
+dim into pieces the mesh does not divide (8 heads over a 16-wide
+``model`` axis), :func:`split_dim` gathers that dim first: XLA inserts
+that resharding unasked, DTensor refuses the view. On plain tensors
+every function here runs exactly as before.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -31,6 +40,9 @@ __all__ = [
     "dense_init",
     "embed_init",
     "cross_entropy_loss",
+    "is_dtensor",
+    "split_dim",
+    "merge_dims",
 ]
 
 
@@ -184,6 +196,60 @@ def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     if cfg.cross_attention:
         n += cfg.n_layers * attn  # decoder cross-attention blocks
     return n
+
+
+# ---------------------------------------------------------------------------
+# DTensor
+# ---------------------------------------------------------------------------
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (without importing DTensor's module: when
+    it was never imported, nothing is one)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def split_dim(t: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """``t`` with ``dim`` split into ``sizes`` (a reshape). On a DTensor
+    whose ``dim`` is sharded over mesh dims whose sizes multiply to a
+    number that does not divide ``sizes[0]`` (gemma2-2b's 8 heads over a
+    16-wide ``model`` axis), those mesh dims are gathered first."""
+    dim = dim % t.dim()
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh, places = t.device_mesh, list(t.placements)
+        on = [i for i, pl in enumerate(places) if isinstance(pl, Shard) and pl.dim == dim]
+        if sizes[0] % math.prod(mesh.size(i) for i in on):
+            for i in on:
+                places[i] = Replicate()
+            t = t.redistribute(mesh, places)
+    return t.reshape(*t.shape[:dim], *sizes, *t.shape[dim + 1:])
+
+
+class _Merge(torch.autograd.Function):
+    """A reshape merging two dims, whose backward splits the gradient with
+    :func:`split_dim` (the gradient may come sharded where the forward's
+    input was not)."""
+
+    @staticmethod
+    def forward(ctx, t, dim):
+        ctx.dim, ctx.sizes = dim, tuple(t.shape[dim:dim + 2])
+        return t.reshape(*t.shape[:dim], -1, *t.shape[dim + 2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_dim(g, ctx.dim, ctx.sizes), None
+
+
+def merge_dims(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` with dims ``dim`` and ``dim + 1`` merged (a reshape; heads
+    back into the model width). On a DTensor that autograd records, the
+    backward pass splits the gradient with :func:`split_dim`."""
+    dim = dim % t.dim()
+    if is_dtensor(t) and t.requires_grad:
+        return _Merge.apply(t, dim)
+    return t.reshape(*t.shape[:dim], -1, *t.shape[dim + 2:])
 
 
 # ---------------------------------------------------------------------------

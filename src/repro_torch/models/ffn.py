@@ -154,7 +154,9 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, 
     buf, idx, valid = _dispatch(src, flat_e, e, capacity)
     h = act(torch.einsum("gecd,edf->gecf", buf, p.w_gate)) * \
         torch.einsum("gecd,edf->gecf", buf, p.w_up)
-    out_buf = torch.einsum("gecf,efd->gecd", h, p.w_down)
+    # contiguous: on DTensors the product's local view needs it (a no-op
+    # on the plain path, where h is)
+    out_buf = torch.einsum("gecf,efd->gecd", h.contiguous(), p.w_down)
     gathered = torch.where(valid[..., None], out_buf[idx], 0)   # (G, N, D)
     out = (gathered.reshape(b, s, k, d)
            * topw[..., None].to(gathered.dtype)).sum(dim=2)

@@ -41,22 +41,25 @@ the reference's ``chunk_loss`` is.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .attention import Attention, MLA, init_attn_params, init_mla_params
-from .common import ModelConfig, cross_entropy_loss, embed_init, rms_norm
+from .common import ModelConfig, cross_entropy_loss, embed_init, is_dtensor, rms_norm
 from .ffn import FFN, MoE, ffn_block, init_ffn_params, init_moe_params, moe_block
 from .ssm import SSM, init_ssm_cache, init_ssm_params, ssm_decode_step
 
 __all__ = [
     "SegmentSpec", "segment_plan", "n_attn_apps", "Block", "LM",
     "init_params", "forward", "encode", "init_cache", "prefill",
-    "decode_step", "loss_fn", "num_params",
+    "decode_step", "loss_fn", "num_params", "replicated_tables",
 ]
 
 
@@ -335,12 +338,67 @@ def num_params(model: nn.Module) -> int:
     return int(sum(p.numel() for p in model.parameters()))
 
 
+#: how many :func:`replicated_tables` scopes over DTensor weights are open
+_replication_depth = 0
+
+
+@contextlib.contextmanager
+def replicated_tables(model: LM):
+    """The scope a step runs in: on a model whose weights are DTensors,
+    ``implicit_replication()``, else nothing. A step builds plain tensors
+    (rotary tables, masks, positions, the zero aux loss) that are the same
+    on every rank; taken as replicated against the DTensor weights they
+    are exact, and building each as a DTensor would thread the mesh
+    through every function of the model. A train step's backward pass
+    runs in it too: autograd meets the saved tables there. Nested, only
+    the outermost scope enters ``implicit_replication``, which turns the
+    switch off on exit, not back to what it was."""
+    global _replication_depth
+    if not is_dtensor(model.embed):
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    outermost = _replication_depth == 0
+    _replication_depth += 1
+    try:
+        with implicit_replication() if outermost else contextlib.nullcontext():
+            yield
+    finally:
+        _replication_depth -= 1
+
+
+def _with_replicated_tables(fn):
+    """``fn(cfg, model, ...)`` run inside ``replicated_tables(model)``."""
+
+    @functools.wraps(fn)
+    def wrapped(cfg, model, *args, **kw):
+        with replicated_tables(model):
+            return fn(cfg, model, *args, **kw)
+
+    return wrapped
+
+
 # ---------------------------------------------------------------------------
 # Forward (training / prefill)
 # ---------------------------------------------------------------------------
 
 def _embed_tokens(cfg: ModelConfig, model: LM, tokens):
-    x = model.embed[tokens]
+    if is_dtensor(model.embed):
+        # The lookup of a vocab-sharded table is a masked gather and a sum
+        # over the vocab shards in XLA. DTensor's forms of it lack a
+        # backward in torch 2.11 (indexing's ``index_put``; the masked
+        # partial sum of ``F.embedding``), so the table's vocab dim is
+        # gathered for the lookup: an all-gather the dry run counts. The
+        # same rows as indexing.
+        from torch.distributed.tensor import Replicate
+
+        table = model.embed
+        table = table.redistribute(table.device_mesh, [
+            Replicate() if p.is_shard(0) else p for p in table.placements])
+        x = F.embedding(tokens, table)
+    else:
+        x = model.embed[tokens]
     if cfg.embed_scale:
         # sqrt(d_model) rounded to x's type first, as the reference casts it
         # (a product of two values of that type rounds once, whichever
@@ -349,6 +407,7 @@ def _embed_tokens(cfg: ModelConfig, model: LM, tokens):
     return x
 
 
+@_with_replicated_tables
 def encode(cfg: ModelConfig, model: LM, frontend_embeds, remat: bool = True,
            impl: str = "auto"):
     """Encoder stack over precomputed frontend embeddings (audio stub)."""
@@ -400,6 +459,7 @@ def _head(cfg: ModelConfig, model: LM, x):
     return logits
 
 
+@_with_replicated_tables
 def forward(cfg: ModelConfig, model: LM, tokens, *, embeds=None, memory=None,
             remat: bool = True, impl: str = "auto"):
     """Full-sequence forward. Returns (logits, aux_loss).
@@ -413,6 +473,7 @@ def forward(cfg: ModelConfig, model: LM, tokens, *, embeds=None, memory=None,
     return _head(cfg, model, x), aux_total
 
 
+@_with_replicated_tables
 def loss_fn(cfg: ModelConfig, model: LM, batch, remat: bool = True,
             impl: str = "auto"):
     """``ce + 0.01 * aux`` and ``{"ce", "aux"}``. With the ``ce_chunk``
@@ -421,7 +482,10 @@ def loss_fn(cfg: ModelConfig, model: LM, batch, remat: bool = True,
     in the forward pass or the backward."""
     from .tuning import get_tuning
 
-    nchunk = get_tuning().ce_chunk
+    return _loss(cfg, model, batch, remat, impl, get_tuning().ce_chunk)
+
+
+def _loss(cfg: ModelConfig, model: LM, batch, remat: bool, impl: str, nchunk: int):
     s = batch["tokens"].shape[1]
     if nchunk and s % nchunk == 0 and batch.get("mask") is None:
         x, aux = _backbone(cfg, model, batch["tokens"], embeds=batch.get("embeds"),
@@ -501,6 +565,7 @@ def _index(tree: dict, i: int) -> dict:
 
 
 @torch.no_grad()
+@_with_replicated_tables
 def decode_step(cfg: ModelConfig, model: LM, cache: dict, tokens, *,
                 memory=None, impl: str = "auto"):
     """One-token decode. tokens: (B, 1). Returns (logits, cache): the cache
@@ -508,8 +573,7 @@ def decode_step(cfg: ModelConfig, model: LM, cache: dict, tokens, *,
     pos = cache["pos"]
     x = _embed_tokens(cfg, model, tokens)
     shared = model.shared()
-    for spec, seg, seg_cache in zip(segment_plan(cfg), model.segments,
-                                    cache["segments"]):
+    for spec, seg, seg_cache in zip(segment_plan(cfg), model.segments, cache["segments"]):
         for i, (blk, flag) in enumerate(zip(seg, _layer_flags(spec))):
             x = blk.decode(x, _index(seg_cache, i), flag, pos, memory, shared, impl)
     x = rms_norm(x, model.final_norm)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention import _draw, _weight
-from .common import ModelConfig, rms_norm
+from .common import ModelConfig, is_dtensor, merge_dims, rms_norm, split_dim
 
 __all__ = [
     "SSM",
@@ -148,8 +148,39 @@ def ssd_chunked(x, dta, B, C, chunk: int):
 
     y_inter = torch.einsum("bctn,bchpn,bcth->bcthp",
                            Cr, prev_states, torch.exp(cs).to(x.dtype))
-    y = (y_intra + y_inter).reshape(b, s, h, p)
+    y = merge_dims(y_intra + y_inter, 1)
     return y, carry
+
+
+def _ssd_on_local_shards(x, dta, B, C, chunk: int):
+    """:func:`ssd_chunked` of DTensor inputs on each rank's local shards,
+    through ``local_map`` (which spares DTensor's sharding search over the
+    5-d einsums). The scan is independent per batch row and per head, and
+    B and C are shared by the heads: a mesh dim shards the batch of all
+    four, or the heads of x and dta with B and C whole, as x is placed
+    where the sizes divide; any other mesh dim is gathered (the sequence
+    never splits: the recurrence runs along it). Returns y."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, xp, bp, split = x.device_mesh, [], [], {0: 1, 2: 1}
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim in split and \
+                x.shape[p.dim] % (split[p.dim] * mesh.size(i)) == 0:
+            split[p.dim] *= mesh.size(i)
+            xp.append(p)
+            bp.append(p if p.dim == 0 else Replicate())
+        else:
+            xp.append(Replicate())
+            bp.append(Replicate())
+    x, dta = x.redistribute(mesh, xp), dta.redistribute(mesh, xp)
+    B, C = B.redistribute(mesh, bp), C.redistribute(mesh, bp)
+
+    def local(xl, al, bl, cl):
+        return ssd_chunked(xl, al, bl, cl, chunk)[0]
+
+    return local_map(local, out_placements=xp, in_placements=(xp, xp, bp, bp),
+                     device_mesh=mesh)(x, dta, B, C)
 
 
 def ssm_block(cfg: ModelConfig, p: SSM, x: torch.Tensor) -> torch.Tensor:
@@ -163,11 +194,14 @@ def ssm_block(cfg: ModelConfig, p: SSM, x: torch.Tensor) -> torch.Tensor:
     dt = F.softplus((x @ p.w_dt).float() + p.dt_bias)
     a = -torch.exp(p.a_log)                                            # (nh,)
     dta = dt * a                                                       # (b,s,nh)
-    xh = xin.reshape(b, s, nh, hd)
+    xh = split_dim(xin, -1, (nh, hd))
     xdt = xh * dt[..., None].to(xh.dtype)
-    y, _ = ssd_chunked(xdt, dta, B, C, cfg.ssm_chunk)
+    if is_dtensor(xdt):
+        y = _ssd_on_local_shards(xdt, dta, B, C, cfg.ssm_chunk)
+    else:
+        y, _ = ssd_chunked(xdt, dta, B, C, cfg.ssm_chunk)
     y = y + xh * p.d_skip[None, None, :, None].to(xh.dtype)
-    y = y.reshape(b, s, d_inner)
+    y = merge_dims(y, 2)
     y = rms_norm(y * F.silu(z), p.norm)
     return y @ p.out_proj
 
@@ -209,13 +243,13 @@ def ssm_decode_step(cfg: ModelConfig, p: SSM, x: torch.Tensor, cache: dict):
     dt = F.softplus((x0 @ p.w_dt).float() + p.dt_bias)
     a = -torch.exp(p.a_log)
     decay = torch.exp(dt * a)                                    # (b, nh)
-    xh = xin.reshape(b, nh, hd)
+    xh = split_dim(xin, -1, (nh, hd))
     upd = torch.einsum("bhp,bn,bh->bhpn", xh, B, dt.to(xh.dtype))
     state = cache["state"] * decay[:, :, None, None].to(xh.dtype) + upd
     cache["state"].copy_(state)
     y = torch.einsum("bhpn,bn->bhp", state, C)
     y = y + xh * p.d_skip[None, :, None].to(xh.dtype)
-    y = y.reshape(b, d_inner)
+    y = merge_dims(y, 1)
     y = rms_norm(y * F.silu(z), p.norm)
     out = (y @ p.out_proj)[:, None]
     return out, cache

@@ -10,7 +10,9 @@ example; and the training path: a bf16 train step, a checkpoint saved and
 restored, and the supervised trainer through a failure, with ``ml_dtypes``
 blocked too, since the card's machine lacks it; and real collectives: a
 two-epoch ``TorchCollectiveBackend`` campaign on two gloo ranks, a fresh
-rank group each epoch; all on the CPU)."""
+rank group each epoch; and the dry run: ``repro_torch.parallel`` and
+``repro_torch.launch.dryrun`` on smoke gemma2-2b's train cell over a fake
+world of 8 ranks; all on the CPU)."""
 
 import ast
 import os
@@ -159,11 +161,23 @@ with TorchCollectiveBackend(n_ranks=2, device="cpu") as coll:
                         coll).run()
 assert len({tuple(r.meta["rank_pids"]) for r in coll_res.records}) == 2
 
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ShapeSpec
+from repro_torch.launch.dryrun import lower_cell
+from repro_torch.launch.mesh import fake_world, mesh_device_type
+from repro_torch.parallel import param_specs  # noqa: F401
+
+with fake_world(8):
+    mesh = init_device_mesh(mesh_device_type(), (4, 2), mesh_dim_names=("data", "model"))
+    cell, _ = lower_cell("gemma2-2b", ShapeSpec("t", 32, 8, "train"), mesh=mesh,
+                         cfg=get_smoke("gemma2-2b"))
+assert cell.flops_per_device > 0 and cell.collective_ops
+
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not loaded, loaded
 print("ok", len(res.records), report.n_measured, len(sweep.cells), len(audit.cells),
-      len(fleet.cells), n_archs, len(trained["losses"]), len(coll_res.records))
+      len(fleet.cells), n_archs, len(trained["losses"]), len(coll_res.records), cell.mesh)
 """
 
 
@@ -175,4 +189,4 @@ def test_port_runs_with_jax_and_reference_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[0].startswith("prefill: 2x4 tokens in ")          # the serve example
-    assert lines[-1] == "ok 4 8 2 1 2 10 5 4"
+    assert lines[-1] == "ok 4 8 2 1 2 10 5 4 4x2"
