@@ -6,8 +6,9 @@ campaign, on random-walk clocks campaigns and the barrier scheme, the
 factor sweeps, drift audit and calibration over the campaign, the
 performance-guideline family, the fault-tolerant sweep fleet, the model
 zoo's serving path, its training path, real collectives on
-``torch.distributed``, and the sharded model with its dry run) at sizes
-users run, and check what comes out.
+``torch.distributed``, the sharded model with its dry run, and the five
+reference walkthroughs of ``examples/``) at sizes users run, and check
+what comes out.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -195,7 +196,21 @@ Phases, each of which raises (exit code 1) on failure:
      local call held at phase 7's bf16 check, each rank's part of the
      logits within ``BF16_DECODE_BOUND`` of the unsharded model's and
      the plain path's;
- 23. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
+ 23. the five reference walkthroughs of ``examples/`` on the card, each
+     through its ``main`` with ``--device cuda`` at the reference's sizes,
+     in the order of ``examples/``: ``compare_impls_torch`` (the f32 flash
+     kernel against its plain version at S 128 and 256, B 2, 4/2 heads,
+     D 64; two rows, the verdicts printed, not gated),
+     ``factor_impact_torch`` (16 cells; tuning first and Holm-significant,
+     dtype null; the resume measures nothing; the store round trip names
+     tuning), ``quickstart_torch`` (the reference's two HCA lines to the
+     printed digit; both Wilcoxon rows A<B), ``repro_audit_torch`` (6/6
+     EQUIVALENT; exactly the two bcast cells DRIFTED; the resume loads 2
+     and recomputes 4) and ``verify_guidelines_torch`` (the honest 10 cells
+     hold; the resume measures nothing; exactly ``alltoall_mock_bound``'s
+     2 cells VIOLATED); each walkthrough's wall and launches, the phase's
+     wall;
+ 24. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
      once per type; ``sim_scan``'s entry counts its launches on the main
      path, on the two paths of phases 11 and 12, on the three of phases
      13-15, on phases 16 and 17 (this process only) and in phase 21d's
@@ -207,7 +222,9 @@ Phases, each of which raises (exit code 1) on failure:
      train step runs the plain attention, held so), and ``padded``, phase
      7's padded calls; the bf16 entry adds ``launches_sharded``, its
      launches on DTensors' local shards in phase 22b, and
-     ``launches_sharded_ranks``, those of 22d's four ranks.
+     ``launches_sharded_ranks``, those of 22d's four ranks; ``sim_scan``'s
+     and the f32 flash entry add ``launches_examples``, their launches in
+     phase 23's walkthroughs.
 
 Every timed kernel in phases 3, 7 and 8 has ``nvidia-smi``'s SM clock
 (now and max), power draw and temperature, sampled right before and after
@@ -3667,6 +3684,101 @@ def phase_sharding(torch) -> dict:
     return res
 
 
+#: quickstart's two HCA lines: host numpy (``SimNet(16, seed=0)``, hca at
+#: 200 fit points x 40 exchanges), the same in both packages, as
+#: ``examples/quickstart.py`` prints them
+QUICKSTART_HCA = ["HCA sync: 0.621s, max offset 1.13us",
+                  "  after 10s of drift: 9.55us (still synced)"]
+
+
+def phase_walkthroughs(torch) -> dict:
+    """23: the five reference walkthroughs on the card, in the order of
+    ``examples/``, each through its ``main`` (``--device cuda``) in this
+    process at the reference's sizes, each checked for what the reference
+    asserts or prints; the compare_impls verdicts are printed, not gated.
+    Returns ``sim_scan``'s and the f32 flash kernel's launches."""
+    from repro_torch.kernels.sim_scan import sim_durations_scan
+
+    t_phase = time.perf_counter()
+    sim_durations_scan.launches = 0
+    reset_flash_counts()
+    walls, scans = {}, {}
+
+    def run(name):
+        before = sim_durations_scan.launches
+        t = time.perf_counter()
+        res = load_example(name).main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+        scans[name] = sim_durations_scan.launches - before
+        print(f"# [23 {name}] wall {walls[name]:.2f} s, sim_scan launches {scans[name]}, "
+              f"flash launches {flash_counts()}")
+        return res
+
+    # compare_impls: f32 flash (the tf32x3 instance) against its plain version
+    res = run("compare_impls_torch")
+    rows = res["rows"]
+    require([r.case.msize for r in rows] == [128, 256]
+            and all(0 < r.avg_a < float("inf") and 0 < r.avg_b < float("inf") for r in rows),
+            "[23 compare_impls] two rows, S 128 and 256, finite times")
+    require(len(res["verdicts"]) == 2, "[23 compare_impls] one verdict line per S")
+    counts = flash_counts()
+    require(counts["tf32x3"] > 0 and sum(counts.values()) == counts["tf32x3"],
+            f"[23 compare_impls] the kernel arm launched the f32 flash instance only ({counts})")
+
+    # factor_impact: tuning first and Holm-significant, dtype null (the
+    # walkthrough raises otherwise), the resume, the store round trip
+    res = run("factor_impact_torch")
+    top = res["effects"][0]
+    dtype = [e for e in res["effects"] if e.axis == "dtype"][0]
+    require(top.axis == "tuning" and top.significant and not dtype.significant,
+            "[23 factor_impact] tuning ranked first and Holm-significant, dtype null")
+    require((res["n_cells"], res["n_resumed"], res["n_measured_again"]) == (16, 16, 0),
+            f"[23 factor_impact] 16 cells measured, then 16 resumed and 0 measured "
+            f"(got {res['n_cells']}, {res['n_resumed']}, {res['n_measured_again']})")
+    require(res["store_top"] == "tuning", "[23 factor_impact] the store round trip names tuning")
+
+    # quickstart: the reference's HCA lines, both Wilcoxon rows A<B
+    res = run("quickstart_torch")
+    require(res["hca"] == QUICKSTART_HCA,
+            f"[23 quickstart] HCA lines {res['hca']}, the reference's {QUICKSTART_HCA}")
+    require(0 < res["windowed_mean"] < res["barrier_mean"],
+            "[23 quickstart] the windowed mean below the skewed barrier's")
+    require([r.verdict for r in res["rows"]] == ["A<B", "A<B"],
+            f"[23 quickstart] both rows A<B (got {[r.verdict for r in res['rows']]})")
+
+    # repro_audit: 6/6 EQUIVALENT, exactly bcast DRIFTED, the resume
+    res = run("repro_audit_torch")
+    report, drifted, resumed = res["report"], res["drifted"], res["resumed"]
+    require(report.all_equivalent and len(report.cells) == 6,
+            "[23 repro_audit] the re-run 6/6 EQUIVALENT")
+    require(sorted((c.op, c.msize) for c in drifted.drifted())
+            == [("bcast", 512), ("bcast", 4096)],
+            "[23 repro_audit] exactly the two bcast cells DRIFTED")
+    require((resumed.n_resumed, resumed.n_computed) == (2, 4) and res["same"],
+            "[23 repro_audit] the resume loads 2, recomputes 4, verdicts unchanged")
+
+    # verify_guidelines: the honest library holds, the resume measures
+    # nothing, the mis-tuned alltoall violates exactly the mock-up bound
+    res = run("verify_guidelines_torch")
+    honest, again, bad = res["report"], res["resumed"], res["bad"]
+    require(len(honest.verdicts) == 10 and honest.ok,
+            "[23 verify_guidelines] honest: all 10 cells hold")
+    require(again.n_measured == 0, "[23 verify_guidelines] the resume measures nothing")
+    violated = [v.guideline.name for v in bad.violations()]
+    require(len(bad.verdicts) == 12 and violated == ["alltoall_mock_bound"] * 2,
+            f"[23 verify_guidelines] mis-tuned alltoall: exactly alltoall_mock_bound's 2 "
+            f"cells VIOLATED (got {violated})")
+
+    launches = dict(sim_scan=sim_durations_scan.launches, tf32x3=flash_counts()["tf32x3"])
+    require(launches["sim_scan"] > 0 and all(scans[n] > 0 for n in scans if n != "compare_impls_torch"),
+            f"[23] each simulated walkthrough launched sim_scan ({scans})")
+    require(launches["tf32x3"] > 0, "[23] the f32 flash kernel launched")
+    print(f"# [23] walls {', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}; "
+          f"launches {launches}; phase {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3744,6 +3856,9 @@ def main() -> int:
     sharding = phase_sharding(torch)
     flash_bf16["launches_sharded"] = sharding["b"]["launches_sharded"]
     flash_bf16["launches_sharded_ranks"] = sharding["d"]["launches"]
+    # the five reference walkthroughs through the port's public imports
+    walk = phase_walkthroughs(torch)
+    kernel["launches_examples"], flash["launches_examples"] = walk["sim_scan"], walk["tf32x3"]
     print(json.dumps({"kernels": [kernel, flash, flash_bf16, ssd, ssd_bf16]}))
     print(f"# total {time.perf_counter() - t0:.1f} s")
     print(smi())

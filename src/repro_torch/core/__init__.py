@@ -5,9 +5,9 @@ algorithms with their probes, cost models, op expressions, the
 experimental design with its epoch fan-out, factor records, statistics
 and comparisons, copied from the JAX package's ``repro.core`` so that a
 seed draws the same host state in both packages. The device side is
-:mod:`repro_torch.simengine` (the window scheme, and the durations the
-barrier scheme of :mod:`.timing` draws), and :mod:`.runtime_meter` times
-real work on the device.
+:mod:`repro_torch.simengine` (the window scheme that :func:`run_windowed`
+runs, and the durations the barrier scheme of :mod:`.timing` draws), and
+:mod:`.runtime_meter` times real work on the device.
 """
 
 from .clocks import (IDENTITY_MODEL, AdjustedClock, Clock, DriftPath,
@@ -31,8 +31,9 @@ from .design import (
 )
 from .factors import (FactorAxis, FactorGrid, FactorSet, GridCell,
                       assert_comparable, capture_torch_factors)
-from .mpi_ops import SimCollective, SimCompositeOp, make_composite_op, make_op
-from .opexpr import OpTerm, is_composite, parse_opexpr
+from .mpi_ops import (OP_LIBRARY, SimCollective, SimCompositeOp,
+                      make_composite_op, make_op)
+from .opexpr import OpTerm, format_opexpr, is_composite, parse_opexpr
 from .retry import RetryBudgetExceeded, RetryPolicy, retry_call
 from .simnet import ClockParams, NetParams, PingPongSample, SimNet
 from .runtime_meter import (MeterConfig, TorchEpochContext, make_torch_measure,
@@ -47,18 +48,19 @@ from .sync import (ALGORITHMS, SYNC_CLASSES, HCASync, JKSync, NetgaugeSync,
                    SkampiSync, SyncResult, make_sync, probe_offsets,
                    true_offsets)
 from .timing import BarrierRun, probe_barrier_skew, run_barrier_timed
-from .window import START_LATE, TOOK_TOO_LONG, WindowRun
+from .window import START_LATE, TOOK_TOO_LONG, WindowRun, run_windowed
 
 __all__ = [
     "Clock", "PerfClock", "SimClock", "AdjustedClock", "DriftPath",
     "LinearModel", "IDENTITY_MODEL", "derive_stream", "linear_fit",
     "SimNet", "NetParams", "ClockParams", "PingPongSample",
     "SimCollective", "SimCompositeOp", "make_op", "make_composite_op",
-    "OpTerm", "parse_opexpr", "is_composite",
+    "OP_LIBRARY",
+    "OpTerm", "parse_opexpr", "is_composite", "format_opexpr",
     "ALGORITHMS", "SYNC_CLASSES", "SyncResult", "make_sync",
     "SkampiSync", "NetgaugeSync", "JKSync", "HCASync",
     "probe_offsets", "true_offsets",
-    "WindowRun", "START_LATE", "TOOK_TOO_LONG",
+    "WindowRun", "START_LATE", "TOOK_TOO_LONG", "run_windowed",
     "run_barrier_timed", "BarrierRun", "probe_barrier_skew",
     "tukey_filter", "relative_ci_width", "wilcoxon_rank_sum",
     "holm_bonferroni", "significance_stars", "chi2_sf", "kruskal_wallis",

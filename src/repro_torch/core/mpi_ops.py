@@ -21,6 +21,7 @@ from .clocks import derive_stream
 from .simnet import SimNet
 
 __all__ = [
+    "OP_LIBRARY",
     "SimCollective",
     "SimCompositeOp",
     "make_op",
@@ -149,3 +150,5 @@ def make_op(name: str, **overrides) -> SimCollective:
     kw.update(overrides)
     return SimCollective(name=name, **kw)
 
+
+OP_LIBRARY = tuple(sorted(["bcast", "allreduce", "alltoall", "scan", "reduce", "barrier"]))

@@ -31,7 +31,7 @@ from __future__ import annotations
 import re
 from dataclasses import dataclass
 
-__all__ = ["OpTerm", "parse_opexpr", "is_composite"]
+__all__ = ["OpTerm", "parse_opexpr", "is_composite", "format_opexpr"]
 
 _TERM_RE = re.compile(
     r"^(?P<op>[A-Za-z_][A-Za-z0-9_]*)"
@@ -90,3 +90,18 @@ def is_composite(expr: str) -> bool:
         return True
     t = terms[0]
     return t.msize_scale != 1.0 or t.procs != "all" or t.impl is not None
+
+
+def format_opexpr(terms: tuple[OpTerm, ...] | list[OpTerm]) -> str:
+    """Inverse of :func:`parse_opexpr` (canonical spelling)."""
+    parts = []
+    for t in terms:
+        s = t.op
+        if t.msize_scale != 1.0:
+            s += f"*{t.msize_scale:g}"
+        if t.procs == "half":
+            s += "@half"
+        if t.impl is not None:
+            s += f"#{t.impl}"
+        parts.append(s)
+    return "+".join(parts)

@@ -10,7 +10,8 @@ as SKaMPI/NBCBench record them (Algs. 9/13):
   * ``TOOK_TOO_LONG`` — the operation did not finish within the window.
 
 Measurements with either flag set on any rank are invalid and discarded.
-The engines that fill a :class:`WindowRun` are in :mod:`repro_torch.simengine`.
+:func:`run_windowed` measures a collective under the scheme; the engine
+that fills its :class:`WindowRun` is in :mod:`repro_torch.simengine`.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["WindowRun", "START_LATE", "TOOK_TOO_LONG"]
+__all__ = ["WindowRun", "START_LATE", "TOOK_TOO_LONG", "run_windowed"]
 
 START_LATE = 1
 TOOK_TOO_LONG = 2
@@ -66,3 +67,23 @@ class WindowRun:
             start_true=np.vstack([r.start_true for r in runs]),
             end_true=np.vstack([r.end_true for r in runs]),
         )
+
+
+def run_windowed(net, sync, op, msize: int, nrep: int, win_size: float,
+                 ranks: list[int] | None = None, device="cuda") -> WindowRun:
+    """Measure ``nrep`` calls of ``op`` under window-based synchronization.
+
+    Completion time per observation follows §3.2.2 (global times):
+    ``max_r global(end_r) - min_r global(start_r)``.
+
+    ``device`` takes the place of the reference's ``engine``: there is one
+    engine, :func:`repro_torch.simengine.run_windowed_torch`, for affine
+    and random-walk clocks alike, and it draws the durations through
+    ``sim_scan`` on the card (``"cuda"``, the default) or through the
+    kernel's plain version on the CPU (``"cpu"``). ``"cuda"`` without a
+    card raises.
+    """
+    from ..simengine import run_windowed_torch
+
+    return run_windowed_torch(net, sync, op, msize, nrep, win_size, ranks=ranks,
+                              device=device)

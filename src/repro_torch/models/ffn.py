@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention import _draw, _weight
-from .common import ModelConfig, activation_fn
+from .common import ModelConfig, activation_fn, is_dtensor
 
 __all__ = ["FFN", "MoE", "init_ffn_params", "ffn_block", "init_moe_params",
            "moe_block"]
@@ -110,6 +110,64 @@ def _dispatch(x, flat_e, e: int, capacity: int):
     return buf, (gidx, flat_e, pos_c), valid
 
 
+def _experts(buf, w_gate, w_up, w_down, act):
+    """The routed experts' GLU on the (G, E, C, D) dispatch buffer."""
+    h = act(torch.einsum("gecd,edf->gecf", buf, w_gate)) * \
+        torch.einsum("gecd,edf->gecf", buf, w_up)
+    return torch.einsum("gecf,efd->gecd", h, w_down)
+
+
+def _experts_on_local_shards(buf, p: MoE, act):
+    """:func:`_experts` of a DTensor buffer on each rank's local shards,
+    through ``local_map``: DTensor's own backward of the three products
+    hands ``aten.view`` a transposed local gradient and fails. Each mesh
+    dim splits the work as the weights are placed: experts (EP, the
+    weights' ``Shard(0)``) split the buffer's expert dim; the hidden dim
+    (TP, ``w_gate``/``w_up`` ``Shard(2)`` and ``w_down`` ``Shard(1)``)
+    leaves a partial sum that is reduced at once; any other mesh dim
+    splits the groups (dim 0) where the sizes divide, with the weights
+    gathered (FSDP), and their gradients are partial sums over it. A mesh
+    dim that divides nothing is gathered and each of its ranks computes
+    the whole product. Returns the (G, E, C, D) output, placed as the
+    buffer is on the EP and group dims and replicated on the others."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = buf.device_mesh
+    g, e, f = buf.shape[0], p.w_gate.shape[0], p.w_gate.shape[2]
+    split = {"g": 1, "e": 1, "f": 1}
+    bp, wp, dp, op, bgp, wgp, dgp = ([] for _ in range(7))
+    R = Replicate()
+
+    def fits(key, size, n):
+        if size % (split[key] * n):
+            return False
+        split[key] *= n
+        return True
+
+    for i in range(mesh.ndim):
+        n = mesh.size(i)
+        pw, pd = p.w_gate.placements[i], p.w_down.placements[i]
+        if pw == Shard(0) and pd == Shard(0) and fits("e", e, n):
+            row = (Shard(1), Shard(0), Shard(0), Shard(1), Shard(1), Shard(0), Shard(0))
+        elif pw == Shard(2) and pd == Shard(1) and fits("f", f, n):
+            row = (R, Shard(2), Shard(1), Partial(), Partial(), Shard(2), Shard(1))
+        elif fits("g", g, n):
+            row = (Shard(0), R, R, Shard(0), Shard(0), Partial(), Partial())
+        else:
+            row = (R,) * 7
+        for lst, pl in zip((bp, wp, dp, op, bgp, wgp, dgp), row):
+            lst.append(pl)
+    buf = buf.redistribute(mesh, bp)
+    wg, wu = (w.redistribute(mesh, wp) for w in (p.w_gate, p.w_up))
+    wd = p.w_down.redistribute(mesh, dp)
+    out = local_map(lambda b, w1, w2, w3: _experts(b, w1, w2, w3, act),
+                    out_placements=op, in_placements=(bp, wp, wp, dp),
+                    in_grad_placements=(bgp, wgp, wgp, dgp),
+                    device_mesh=mesh)(buf, wg, wu, wd)
+    return out.redistribute(mesh, [R if isinstance(pl, Partial) else pl for pl in op])
+
+
 def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed experts, capacity-based scatter dispatch.
 
@@ -152,11 +210,10 @@ def moe_block(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> tuple[torch.Tensor, 
     flat_e = topi.reshape(groups, n)
     src = x.reshape(groups, n // k, d).repeat_interleave(k, dim=1)
     buf, idx, valid = _dispatch(src, flat_e, e, capacity)
-    h = act(torch.einsum("gecd,edf->gecf", buf, p.w_gate)) * \
-        torch.einsum("gecd,edf->gecf", buf, p.w_up)
-    # contiguous: on DTensors the product's local view needs it (a no-op
-    # on the plain path, where h is)
-    out_buf = torch.einsum("gecf,efd->gecd", h.contiguous(), p.w_down)
+    if is_dtensor(buf):
+        out_buf = _experts_on_local_shards(buf, p, act)
+    else:
+        out_buf = _experts(buf, p.w_gate, p.w_up, p.w_down, act)
     gathered = torch.where(valid[..., None], out_buf[idx], 0)   # (G, N, D)
     out = (gathered.reshape(b, s, k, d)
            * topw[..., None].to(gathered.dtype)).sum(dim=2)

@@ -173,6 +173,38 @@ def test_smoke_cell_through_lower_cell():
     assert len(out["weight_placements"]) == 2 and out["loss_shape"] == []
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-236b"])
+def test_smoke_moe_train_cell_through_lower_cell(arch):
+    """The MoE train step on meta DTensors, mesh 4x2: S 128 > 64 takes the
+    grouped dispatch that train_4k takes, and the routed experts' backward
+    runs on local shards (DTensor's own backward of the expert products
+    hands ``aten.view`` a transposed gradient and fails)."""
+    out = _run(f"""
+        import json
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.configs import ShapeSpec, get_smoke
+        from repro_torch.launch.dryrun import lower_cell
+        from repro_torch.launch.mesh import fake_world, mesh_device_type
+
+        with fake_world(8):
+            mesh = init_device_mesh(mesh_device_type(), (4, 2), mesh_dim_names=("data", "model"))
+            report, (state, metrics) = lower_cell(
+                "{arch}", ShapeSpec("t", 128, 8, "train"), mesh=mesh,
+                cfg=get_smoke("{arch}"))
+            d = report.to_dict()
+            moe = next(m for m in state["params"].modules() if type(m).__name__ == "MoE")
+            names = lambda t: [type(p).__name__ + str(getattr(p, "dim", "")) for p in t.placements]
+            d["w_gate"], d["grad"] = names(moe.w_gate), names(moe.w_gate.grad)
+            d["loss_shape"] = list(metrics["loss"].shape)
+        print(json.dumps(d))
+    """)
+    assert out["flops_per_device"] > 0 and out["chips"] == 8 and out["mesh"] == "4x2"
+    assert out["collective_bytes_per_device"] > 0 and out["loss_shape"] == []
+    # FSDP over data, the experts over model (E = 4 and 8 divide 2)
+    assert out["w_gate"] == ["Shard1", "Shard0"]
+    assert len(out["grad"]) == 2
+
+
 def test_full_width_prefill_cell_on_the_production_mesh(tmp_path):
     """gemma2-2b prefill_32k on 16x16 (a fake world of 256 ranks) through
     the CLI: the step runs at full width on meta DTensors."""

@@ -226,17 +226,58 @@ _RANKS = textwrap.dedent(r'''
         res["cache"] = rel(dcache["segments"][0][key], cache["segments"][0][key])
         return res
 
+    def train_run(cfg, mesh):
+        """One train step of ``cfg`` on DTensors placed by ``param_specs``
+        against the plain step from the same weights and batch: the loss,
+        every gradient and every updated weight (relative to its max), and
+        the routed experts' placements. S 128 > 64: grouped dispatch."""
+        import copy
+        import numpy as np
+        from repro_torch.launch import init_train_state, make_train_step
+        from repro_torch.models import init_params
+        from repro_torch.parallel import P, batch_specs, distribute, param_specs
+
+        plain = init_train_state(init_params(cfg, device="cpu", seed=0))
+        model = copy.deepcopy(plain["params"])
+        specs = param_specs(model, cfg, mesh)
+        state = init_train_state(model)
+        state = {"params": distribute(state["params"], specs, mesh),
+                 "opt": distribute(state["opt"], {"m": specs, "v": specs, "count": P()}, mesh)}
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 129)).astype(np.int64))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        step = make_train_step(cfg)
+        plain, want = step(plain, batch)
+        state, got = step(state, distribute(batch, batch_specs(mesh, batch), mesh))
+        ref = dict(plain["params"].named_parameters())
+        got_p = dict(state["params"].named_parameters())
+        moe = next(n for n in got_p if n.endswith("moe.w_gate"))
+        with torch.no_grad():
+            return {"loss": rel(got["loss"], want["loss"]),
+                    "grad": max(rel(p.grad, ref[n].grad) for n, p in got_p.items()),
+                    "param": max(rel(p, ref[n]) for n, p in got_p.items()),
+                    "w_gate": names(got_p[moe])}
+
     def run(rank, out):
+        import dataclasses
         from repro_torch.checkpoint import CheckpointConfig, CheckpointStore
+        from repro_torch.configs import get_smoke
         from repro_torch.launch import make_local_mesh
         from repro_torch.models.common import split_dim
         from repro_torch.parallel import P, distribute
 
         torch.manual_seed(0)
+        torch.set_num_threads(1)       # four ranks share the host's cores
         mesh = make_local_mesh(2, 2)
         res = {"rank": rank}
         for arch in ("gemma2-2b", "mamba2-1.3b"):
             res[arch] = model_run(arch, mesh)
+
+        # the MoE train step: experts over model (E 4), then the hidden dim
+        # over model where E (3) does not divide it
+        mix = get_smoke("mixtral-8x22b")
+        res["moe_train"] = {"ep": train_run(mix, mesh),
+                            "tp": train_run(dataclasses.replace(mix, n_experts=3), mesh)}
 
         # split_dim gathers a dim the mesh does not split into whole pieces
         x = torch.arange(2 * 3 * 8, dtype=torch.float32).reshape(2, 3, 8)
@@ -299,6 +340,20 @@ def test_sharded_prefill_and_decode_match_unsharded_on_gloo_ranks(gloo_ranks, ar
         assert max(res["decode"]) <= 1e-5, res
         assert res["cache"] <= 1e-5, res
         assert res["cache_placements"] == cache_placements
+
+
+@pytest.mark.parametrize("split,w_gate", [
+    ("ep", ["Shard(1)", "Shard(0)"]),     # FSDP over data, experts over model
+    ("tp", ["Shard(1)", "Shard(2)"]),     # FSDP over data, hidden dim over model
+])
+def test_sharded_moe_train_step_matches_plain_on_gloo_ranks(gloo_ranks, split, w_gate):
+    """Smoke mixtral's train step on the 2x2 mesh equals the plain step:
+    the loss, every gradient and every updated weight within 1e-5 of their
+    max."""
+    for rank in gloo_ranks:
+        res = rank["moe_train"][split]
+        assert res["loss"] <= 1e-5 and res["grad"] <= 1e-5 and res["param"] <= 1e-5, res
+        assert res["w_gate"] == w_gate
 
 
 def test_split_dim_gathers_what_the_mesh_does_not_divide(gloo_ranks):
