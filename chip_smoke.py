@@ -6,9 +6,9 @@ campaign, on random-walk clocks campaigns and the barrier scheme, the
 factor sweeps, drift audit and calibration over the campaign, the
 performance-guideline family, the fault-tolerant sweep fleet, the model
 zoo's serving path, its training path, real collectives on
-``torch.distributed``, the sharded model with its dry run, and the five
-reference walkthroughs of ``examples/``) at sizes users run, and check
-what comes out.
+``torch.distributed``, the sharded model with its dry run, the five
+reference walkthroughs of ``examples/``, and the reference's numpy
+engines) at sizes users run, and check what comes out.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -210,7 +210,23 @@ Phases, each of which raises (exit code 1) on failure:
      hold; the resume measures nothing; exactly ``alltoall_mock_bound``'s
      2 cells VIOLATED); each walkthrough's wall and launches, the phase's
      wall;
- 24. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
+ 24. the reference's numpy engines (``engine="batch" | "batch_rw" |
+     "auto"``), their durations drawn on the host in the reference's
+     order and scanned by ``sim_scan`` on the card: (a) the archived
+     reference run through ``TorchSimBackend(engine="batch")``, then
+     ``"auto"``: on ``"cpu"`` all 72 records bit-equal to
+     ``run-000.jsonl``, on ``"cuda"`` the same record lengths, every
+     ``execute_batch`` call's durations within 1e-12 relative of the
+     CPU's and the records within 1e-12 of the campaign's timeline; (b)
+     phase 6's shape (p = 512, nrep 1e5, hca 200 x 40, allreduce at 4096
+     B, one epoch) through ``run_windowed(engine="batch")`` on ``"cpu"``
+     and ``"cuda"`` from one state: equal flags, durations within 1e-12
+     relative, times and stamps within 1e-12 of the timeline, both walls
+     beside phase 6's per-epoch wall; (c) ``batch_rw`` on phase 10's
+     walking clocks at p = 64, nrep 1e4 then 3333 on the grown paths, the
+     same checks; (d) ``engine="scalar"`` on the card and ``"jax"`` raise
+     ``ValueError``;
+ 25. a ``kernels`` JSON line for every kernel of the paths, flash and SSD
      once per type; ``sim_scan``'s entry counts its launches on the main
      path, on the two paths of phases 11 and 12, on the three of phases
      13-15, on phases 16 and 17 (this process only) and in phase 21d's
@@ -224,7 +240,8 @@ Phases, each of which raises (exit code 1) on failure:
      launches on DTensors' local shards in phase 22b, and
      ``launches_sharded_ranks``, those of 22d's four ranks; ``sim_scan``'s
      and the f32 flash entry add ``launches_examples``, their launches in
-     phase 23's walkthroughs.
+     phase 23's walkthroughs; ``sim_scan``'s adds ``launches_batch``, its
+     launches under the numpy engines in phase 24.
 
 Every timed kernel in phases 3, 7 and 8 has ``nvidia-smi``'s SM clock
 (now and max), power draw and temperature, sampled right before and after
@@ -606,7 +623,7 @@ def phase_gate(torch):
           "EQUIVALENT, 0 DRIFTED")
 
 
-def phase_main_path(torch) -> int:
+def phase_main_path(torch) -> tuple[int, float]:
     import numpy as np
 
     from repro_torch import simengine
@@ -731,7 +748,7 @@ def phase_main_path(torch) -> int:
     print(f"# [6 cpu] one epoch of the same shape on the CPU path: {cpu_s:.2f} s "
           f"(card: {wall / epochs:.2f} s per epoch); epoch-0 median cuda/cpu: "
           + ", ".join(ratios))
-    return launches
+    return launches, wall / epochs
 
 
 def rel_err(a, b) -> float:
@@ -3779,6 +3796,226 @@ def phase_walkthroughs(torch) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def captured_durations(store: list):
+    """Append the durations of every ``execute_batch`` call (the numpy
+    engines' draws) to ``store`` while the block runs."""
+    from repro_torch.core.mpi_ops import SimCollective
+
+    original = SimCollective.execute_batch
+
+    def capture(self, *args, **kw):
+        ex = original(self, *args, **kw)
+        store.append(ex.durations)
+        return ex
+
+    SimCollective.execute_batch = capture
+    try:
+        yield store
+    finally:
+        SimCollective.execute_batch = original
+
+
+def durations_err(cpu: list, card: list, what: str) -> float:
+    """The card's durations against numpy's, call by call: the same calls,
+    each within 1e-12 of its largest duration; returns the largest
+    relative difference."""
+    import numpy as np
+
+    require(len(cpu) == len(card) and all(a.shape == b.shape for a, b in zip(cpu, card)),
+            f"{what}: the same execute_batch calls on cpu and cuda ({len(cpu)}, {len(card)})")
+    worst = max((float(np.abs(a - b).max() / np.abs(a).max()) for a, b in zip(cpu, card)
+                 if a.size), default=0.0)
+    require(worst <= 1e-12, f"{what}: durations cuda vs cpu {worst:.3e} <= 1e-12 relative")
+    return worst
+
+
+def copied_state(net, sync, op):
+    """A deep copy of ``(net, sync, op)`` that carries the ops' cached
+    epoch biases over to the copied net (a ``WeakKeyDictionary`` keeps its
+    keys when deep-copied, so the copy would draw its biases again)."""
+    state = copy.deepcopy((net, sync, op))
+    terms = [t for t, _, _ in op.terms] if getattr(op, "terms", None) else [op]
+    twins = [t for t, _, _ in state[2].terms] if getattr(op, "terms", None) else [state[2]]
+    for term, twin in zip(terms, twins):
+        if net in term._epoch_bias:
+            twin._epoch_bias[state[0]] = term._epoch_bias[net]
+    return state
+
+
+def window_pair(torch, net, sync, op, nrep, win, engine) -> dict:
+    """One ``run_windowed`` call of ``engine`` on ``"cpu"`` and on
+    ``"cuda"`` from one state (the net, sync and op copied first): equal
+    flags, the durations within 1e-12 relative, the times and stamps
+    within 1e-12 of the run's timeline (its largest stamp: a time is a
+    difference of two stamps, and a duration that moved by an ulp can move
+    a stamp by one of the stamp's ulps), ``net.t``, the AR(1) state and
+    the generator's state the same. Returns the walls and differences."""
+    import numpy as np
+
+    from repro_torch.core import run_windowed
+    from repro_torch.kernels.sim_scan import sim_durations_scan
+
+    card = copied_state(net, sync, op)
+    out, runs, durs = {}, {}, {}
+    for device, state in (("cpu", (net, sync, op)), ("cuda", card)):
+        with captured_durations([]) as durs[device]:
+            launches = sim_durations_scan.launches
+            t = time.perf_counter()
+            runs[device] = run_windowed(*state, 4096, nrep, win, device=device, engine=engine)
+            torch.cuda.synchronize()
+            out[f"{device}_s"] = time.perf_counter() - t
+            out[f"{device}_launches"] = sim_durations_scan.launches - launches
+    a, b = runs["cpu"], runs["cuda"]
+    what = f"[24 {engine}] p={net.p} nrep {nrep}"
+    require(out["cpu_launches"] == 0 and out["cuda_launches"] == 1,
+            f"{what}: sim_scan launched once on cuda, never on cpu "
+            f"({out['cuda_launches']}, {out['cpu_launches']})")
+    require(np.array_equal(a.errors, b.errors), f"{what}: error flags equal")
+    out["dur_rel"] = durations_err(durs["cpu"], durs["cuda"], what)
+    scale = max(float(np.abs(a.end_true).max()), float(np.abs(a.end_global_est).max()))
+    out["scale_s"], out["max_abs"] = scale, 0.0
+    for k in ("times", "start_true", "end_true", "start_global_est", "end_global_est"):
+        err = float(np.abs(getattr(a, k) - getattr(b, k)).max())
+        require(err <= 1e-12 * scale, f"{what} {k}: |err| {err:.3e} <= 1e-12 x {scale:.3f} s")
+        out["max_abs"] = max(out["max_abs"], err)
+    out["times_rel"] = float(np.abs(a.times - b.times).max() / np.abs(a.times).max())
+    require(float(np.abs(net.t - card[0].t).max()) <= 1e-12 * scale, f"{what}: net.t")
+    require(abs(op._ar_state - card[2]._ar_state) <= 1e-12, f"{what}: AR(1) carry")
+    require(net.rng.bit_generator.state == card[0].rng.bit_generator.state,
+            f"{what}: the generator in the same state")
+    out["invalid"] = a.invalid_fraction
+    return out
+
+
+def phase_numpy_engines(torch, main_epoch_s=float("nan"), p=512, nrep=100_000, rw_p=64,
+                        rw_nrep=10_000) -> int:
+    """24: the reference's numpy engines, their durations scanned by
+    ``sim_scan`` on the card. (a) the archived reference run regenerated
+    through ``TorchSimBackend(engine=...)``, ``"batch"`` then ``"auto"``:
+    on ``"cpu"`` every record bit-equal to the archive, on ``"cuda"`` the
+    same record lengths, each execute_batch call's durations within 1e-12
+    relative of the CPU's, the times within 1e-12 of the campaign's
+    timeline; (b) phase 6's shape through ``run_windowed(engine="batch")``
+    on both devices from one state; (c) ``batch_rw`` on phase 10's walking
+    clocks; (d) the two refusals. Returns ``sim_scan``'s launches."""
+    import numpy as np
+
+    from repro_torch.campaign import Campaign, CampaignSpec, ResultStore, TorchSimBackend
+    from repro_torch.core import ClockParams, ExperimentDesign, SimNet, TestCase, make_op, make_sync
+    from repro_torch.core import run_windowed
+    from repro_torch.kernels.sim_scan import sim_durations_scan
+
+    t_phase = time.perf_counter()
+    sim_durations_scan.launches = 0
+
+    # (a) the archive, all 72 records
+    archive = {(r.case.op, r.case.msize, r.epoch): r.times for r in ResultStore(
+        ROOT / "benchmarks" / "reference_archive" / "run-000.jsonl").records()}
+    cases = [TestCase(op, m) for op in ("allreduce", "bcast", "alltoall") for m in (512, 4096)]
+    spec = CampaignSpec(cases, ExperimentDesign(n_launch_epochs=12, nrep=40, seed=0),
+                        name="repro-audit")
+    for engine in ("batch", "auto"):
+        got, durs, scale = {}, {}, [0.0]
+        for device in ("cpu", "cuda"):
+            backend = TorchSimBackend(p=8, seed0=0, sync_kw=dict(n_fitpts=60, n_exchanges=20),
+                                      engine=engine, device=device)
+            measure = backend.measure
+
+            def measured(ctx, case, nrep, measure=measure):
+                out = measure(ctx, case, nrep)
+                scale[0] = max(scale[0], float(np.abs(ctx.net.t).max()))
+                return out
+
+            backend.measure = measured
+            launches = sim_durations_scan.launches
+            t = time.perf_counter()
+            with captured_durations([]) as durs[device]:
+                res = Campaign(spec, backend).run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = sim_durations_scan.launches - launches
+            got[device] = {(r.case.op, r.case.msize, r.epoch): r.times for r in res.records}
+            require(set(got[device]) == set(archive) and len(archive) == 72,
+                    f"[24a {engine} {device}] the archive's 72 records")
+            require(all(r.meta["engine"] == "batch" and r.meta["device"].startswith(device)
+                        and not r.meta["fused"] for r in res.records),
+                    f"[24a {engine} {device}] records say engine=batch on {device}, per epoch")
+            print(f"# [24a {engine} {device}] 72 records in {wall:.2f} s, "
+                  f"sim_scan launches {launches}, execute_batch calls {len(durs[device])}")
+            if device == "cpu":
+                require(launches == 0, f"[24a {engine} cpu] no kernel launch")
+                require(all(np.array_equal(got["cpu"][k], archive[k]) for k in archive),
+                        f"[24a {engine} cpu] every record bit-equal to the archive")
+        require(launches > 0, f"[24a {engine} cuda] sim_scan launched")
+        card = got["cuda"]
+        require(all(card[k].size == archive[k].size for k in archive),
+                f"[24a {engine} cuda] every record the archive's length")
+        dur_rel = durations_err(durs["cpu"], durs["cuda"], f"[24a {engine}]")
+        err = max(float(np.abs(card[k] - archive[k]).max()) for k in archive)
+        rel = max(float(np.abs(card[k] - archive[k]).max() / np.abs(archive[k]).max())
+                  for k in archive)
+        require(err <= 1e-12 * scale[0],
+                f"[24a {engine} cuda] |err| {err:.3e} s <= 1e-12 x timeline {scale[0]:.4f} s")
+        n_diff = sum(not np.array_equal(card[k], archive[k]) for k in archive)
+        print(f"# [24a {engine}] cpu: 72/72 records bit-equal to the archive; cuda: lengths "
+              f"equal, durations within {dur_rel:.3e} relative, records max |err| {err:.3e} s "
+              f"(max relative to the record's largest time {rel:.3e}; timeline "
+              f"{scale[0]:.4f} s), {72 - n_diff}/72 records bit-equal")
+
+    # (b) phase 6's shape, one epoch: p 512, nrep 1e5, hca 200 x 40, allreduce 4096 B
+    t = time.perf_counter()
+    net = SimNet(p, seed=0)
+    sync = make_sync("hca", n_fitpts=200, n_exchanges=40).synchronize(net)
+    sync_s = time.perf_counter() - t
+    b = window_pair(torch, net, sync, make_op("allreduce"), nrep, 400e-6, "batch")
+    print(f"# [24b batch] p={p} nrep {nrep} hca 200x40 allreduce@4096 (sync {sync_s:.2f} s): "
+          f"wall cpu {b['cpu_s']:.2f} s, cuda {b['cuda_s']:.2f} s (phase 6's device "
+          f"engine: {main_epoch_s:.2f} s per epoch of three cases); flags equal, invalid "
+          f"{b['invalid']:.4f}; durations within {b['dur_rel']:.3e} relative; times and "
+          f"stamps max |err| {b['max_abs']:.3e} s (timeline {b['scale_s']:.3f} s; times "
+          f"relative {b['times_rel']:.3e}); sim_scan launches {b['cuda_launches']}")
+
+    # (c) batch_rw on phase 10's walking clocks
+    t = time.perf_counter()
+    net = SimNet(rw_p, seed=5, clocks=ClockParams(rw_sigma=RW_SIGMA))
+    sync = make_sync("hca", n_fitpts=100, n_exchanges=20).synchronize(net)
+    sync_s = time.perf_counter() - t
+    op = make_op("allreduce")
+    c = window_pair(torch, net, sync, op, rw_nrep, 300e-6, "batch_rw")
+    c2 = window_pair(torch, net, sync, op, rw_nrep // 3, 300e-6, "batch_rw")
+    print(f"# [24c batch_rw] rw_sigma {RW_SIGMA:g}, p={rw_p}, hca 100x20 (sync {sync_s:.2f} s), "
+          f"nrep {rw_nrep} then {rw_nrep // 3} on the grown paths: wall cpu {c['cpu_s']:.2f}, "
+          f"{c2['cpu_s']:.2f} s, cuda {c['cuda_s']:.2f}, {c2['cuda_s']:.2f} s; flags equal, "
+          f"invalid {c['invalid']:.4f}; durations within "
+          f"{max(c['dur_rel'], c2['dur_rel']):.3e} relative; max |err| "
+          f"{max(c['max_abs'], c2['max_abs']):.3e} s (timeline {c2['scale_s']:.3f} s; times "
+          f"relative {max(c['times_rel'], c2['times_rel']):.3e})")
+
+    # (d) the refusals: the scalar engine on the card, the reference's jax engine
+    net = SimNet(4, seed=2)
+    sync = make_sync("hca", n_fitpts=20, n_exchanges=5).synchronize(net)
+    for engine, device in (("scalar", "cuda"), ("jax", "cuda")):
+        try:
+            run_windowed(net, sync, make_op("bcast"), 256, 10, 300e-6, device=device,
+                         engine=engine)
+        except ValueError as exc:
+            print(f"# [24d] engine={engine!r} device={device!r} raised ValueError: {exc}")
+        else:
+            require(False, f"[24d] engine={engine!r} on {device} raises ValueError")
+    try:
+        TorchSimBackend(engine="scalar")
+    except ValueError:
+        pass
+    else:
+        require(False, "[24d] TorchSimBackend(engine='scalar') on the card raises")
+
+    launches = sim_durations_scan.launches
+    require(launches > 0, "[24] the numpy engines launched sim_scan on the card")
+    print(f"# [24] sim_scan launches {launches}; phase {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3799,7 +4036,7 @@ def main() -> int:
     kernel = phase_kernel(torch)
     phase_engines(torch)
     phase_gate(torch)
-    kernel["launches"] = phase_main_path(torch)
+    kernel["launches"], main_epoch_s = phase_main_path(torch)
     flash, flash_bf16 = phase_flash(torch)
     ssd, ssd_bf16 = phase_ssd(torch)
     # the A/B path in the reference's f32 (the 3xTF32 flash instance), then
@@ -3859,6 +4096,8 @@ def main() -> int:
     # the five reference walkthroughs through the port's public imports
     walk = phase_walkthroughs(torch)
     kernel["launches_examples"], flash["launches_examples"] = walk["sim_scan"], walk["tf32x3"]
+    # the reference's numpy engines, their durations scanned on the card
+    kernel["launches_batch"] = phase_numpy_engines(torch, main_epoch_s)
     print(json.dumps({"kernels": [kernel, flash, flash_bf16, ssd, ssd_bf16]}))
     print(f"# total {time.perf_counter() - t0:.1f} s")
     print(smi())

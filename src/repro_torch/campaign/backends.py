@@ -33,6 +33,7 @@ from ..core.opexpr import parse_opexpr
 from ..core.runtime_meter import MeterConfig, TorchEpochContext
 from ..core.simnet import ClockParams, SimNet
 from ..core.sync import SYNC_CLASSES, make_sync
+from ..core.window import ENGINES, resolve_engine, run_windowed
 from ..kernels.ops import IMPLS, make_benchmark_op
 from ..simengine import (resolve_device, run_windowed_epochs_torch,
                          run_windowed_torch)
@@ -107,8 +108,9 @@ def _apply_cold_buffers(op) -> None:
 
 class _TorchSimEpoch:
     """One simulated launch epoch: a fresh cluster, synchronized clocks,
-    the device its measurements run on, and a lazily-built cost model per
-    op name."""
+    the device its measurements run on, the engine that runs them
+    (resolved once per epoch, as the reference's ``_SimEpoch`` does), and
+    a lazily-built cost model per op name."""
 
     def __init__(self, backend: "TorchSimBackend", epoch: int):
         self.backend = backend
@@ -121,6 +123,7 @@ class _TorchSimEpoch:
         sync_kw = _filter_sync_kw(backend.sync_name, backend.sync_kw)
         self.sync = make_sync(backend.sync_name,
                               **sync_kw).synchronize(self.net)
+        self.engine = resolve_engine(backend.engine, self.net)
         self._ops: dict[str, Any] = {}
 
     def op(self, name: str):
@@ -145,13 +148,23 @@ class TorchSimBackend:
     collective (a seeded mis-tuning), ``buffer_policy``, ``epoch_isolation``
     and ``dtype`` are sweepable factors, and window discards (START_LATE /
     TOOK_TOO_LONG) are topped up so a sample has ~``nrep`` valid
-    observations. ``engine`` is ``"torch"``, the only engine here.
+    observations.
+
+    ``engine`` is ``"torch"`` (the default: the device engine, its draws on
+    the device) or one of the reference's numpy engines, ``"auto"``,
+    ``"batch"``, ``"batch_rw"`` or ``"scalar"`` (see
+    :func:`~repro_torch.core.window.run_windowed`), which draw from the
+    host's generator in the reference's order: ``"batch"`` or ``"auto"``
+    on ``"cpu"`` reproduces the reference ``SimBackend``'s records bit for
+    bit, and on ``"cuda"`` to rounding, the durations scanned by the
+    ``sim_scan`` kernel. ``"scalar"`` runs on the host and wants
+    ``device="cpu"``.
 
     ``device`` is where the measurements run: ``"cuda"`` (the default, the
-    CUDA kernel) or ``"cpu"`` (the kernel's plain version). Constructing a
-    CUDA backend on a machine without a GPU raises. ``fuse_epochs`` lets
-    :meth:`measure_epochs` batch epochs; it is an execution knob, not a
-    factor.
+    CUDA kernel) or ``"cpu"`` (the kernel's plain version, or numpy for
+    the numpy engines). Constructing a CUDA backend on a machine without a
+    GPU raises. ``fuse_epochs`` lets :meth:`measure_epochs` batch epochs
+    of the ``"torch"`` engine; it is an execution knob, not a factor.
     """
 
     p: int = 8
@@ -173,9 +186,12 @@ class TorchSimBackend:
                                compare=False)
 
     def __post_init__(self):
-        if self.engine != "torch":
-            raise ValueError(f"TorchSimBackend: engine must be 'torch', got "
-                             f"{self.engine!r}")
+        if self.engine not in ENGINES:
+            raise ValueError(f"TorchSimBackend: engine must be one of "
+                             f"{ENGINES}, got {self.engine!r}")
+        if self.engine == "scalar" and str(self.device) != "cpu":
+            raise ValueError("TorchSimBackend: engine='scalar' runs on the "
+                             "host only; pass device='cpu'")
         resolve_device(self.device)
 
     def make_epoch(self, epoch: int) -> _TorchSimEpoch:
@@ -194,18 +210,26 @@ class TorchSimBackend:
                              f"{self.epoch_isolation!r}")
         return _TorchSimEpoch(self, epoch)
 
+    def _run(self, ctx: _TorchSimEpoch, op, msize: int,
+             nrep: int):
+        """One window of ``nrep`` calls through the epoch's engine."""
+        if ctx.engine == "torch":
+            return run_windowed_torch(ctx.net, ctx.sync, op, msize, nrep,
+                                      self.win_size, device=ctx.device)
+        return run_windowed(ctx.net, ctx.sync, op, msize, nrep, self.win_size,
+                            device=ctx.device, engine=ctx.engine)
+
     def _top_up(self, ctx: _TorchSimEpoch, op, msize: int, nrep: int,
                 runs: list) -> np.ndarray:
         """Top up window discards (at most 2 extra chunks) through the
-        per-epoch engine; the valid times, or at most ``nrep`` raw times
-        when nothing was valid (a window far too small)."""
+        epoch's engine, as the reference's ``SimBackend.measure`` does; the
+        valid times, or at most ``nrep`` raw times when nothing was valid
+        (a window far too small)."""
         for _ in range(2):
             missing = nrep - sum(r.valid_times.size for r in runs)
             if missing <= 0:
                 break
-            runs.append(run_windowed_torch(ctx.net, ctx.sync, op, msize,
-                                           missing, self.win_size,
-                                           device=ctx.device))
+            runs.append(self._run(ctx, op, msize, missing))
         valid = np.concatenate([r.valid_times for r in runs])
         return valid if valid.size else np.concatenate(
             [r.times for r in runs])[:nrep]
@@ -213,14 +237,14 @@ class TorchSimBackend:
     def measure(self, ctx: _TorchSimEpoch, case: TestCase,
                 nrep: int) -> np.ndarray:
         op = ctx.op(case.op)
-        run = run_windowed_torch(ctx.net, ctx.sync, op, case.msize, nrep,
-                                 self.win_size, device=ctx.device)
-        return self._top_up(ctx, op, case.msize, nrep, [run])
+        return self._top_up(ctx, op, case.msize, nrep,
+                            [self._run(ctx, op, case.msize, nrep)])
 
     def record_meta(self, ctx: _TorchSimEpoch, case: TestCase) -> dict:
-        """Per-record provenance: the engine, the device it ran on, and
-        whether the record came from a fused multi-epoch measurement."""
-        return {"engine": self.engine, "device": str(ctx.device),
+        """Per-record provenance: the engine that ran (``"auto"``
+        resolved), the device it ran on, and whether the record came from a
+        fused multi-epoch measurement."""
+        return {"engine": ctx.engine, "device": str(ctx.device),
                 "fused": False}
 
     def measure_epochs(self, work: dict, design: ExperimentDesign):
@@ -236,11 +260,14 @@ class TorchSimBackend:
         :func:`~repro_torch.core.design.measure_adaptive`.
 
         Returns ``{(op, msize, epoch): (times, meta)}`` covering every case
-        in ``work``, or ``None`` when fusing is off, the epochs share one
-        cluster (``epoch_isolation="none"``) or the clocks walk
-        (``clock_kw["rw_sigma"] > 0``, which the fused window cannot
-        convert): the caller then measures per epoch.
+        in ``work``, or ``None`` when the engine is not ``"torch"`` (the
+        numpy engines measure per epoch, as the reference's do), fusing is
+        off, the epochs share one cluster (``epoch_isolation="none"``) or
+        the clocks walk (``clock_kw["rw_sigma"] > 0``, which the fused
+        window cannot convert): the caller then measures per epoch.
         """
+        if self.engine != "torch":
+            return None
         if not self.fuse_epochs or self.epoch_isolation != "process":
             return None
         if self.clock_kw.get("rw_sigma", 0.0) > 0.0:

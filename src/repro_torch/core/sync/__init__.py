@@ -9,7 +9,7 @@ from .base import (
     true_offsets,
 )
 from .hca import HCASync, learn_model_hca
-from .jk import JKSync, collect_fitpoints_batch
+from .jk import JKSync, collect_fitpoint, collect_fitpoints_batch
 from .netgauge import NetgaugeSync, compute_offset_minrtt
 from .skampi import SkampiSync
 
@@ -25,6 +25,7 @@ __all__ = [
     "NetgaugeSync",
     "SkampiSync",
     "learn_model_hca",
+    "collect_fitpoint",
     "collect_fitpoints_batch",
     "compute_offset_minrtt",
     "ALGORITHMS",

@@ -28,7 +28,32 @@ from ..clocks import LinearModel, linear_fit
 from ..simnet import SimNet
 from .base import ClockSync, SyncResult, compute_rtt
 
-__all__ = ["JKSync", "collect_fitpoints_batch"]
+__all__ = ["JKSync", "collect_fitpoint", "collect_fitpoints_batch"]
+
+
+def collect_fitpoint(
+    net: SimNet,
+    client: int,
+    ref: int,
+    rtt: float,
+    n_exchanges: int,
+    init_client: float = 0.0,
+    init_ref: float = 0.0,
+) -> tuple[float, float]:
+    """One fitpoint: median offset over ``n_exchanges`` ping-pongs
+    (Alg. 15 lines 11-20 / Alg. 4 lines 10-19), the scalar oracle of
+    :func:`collect_fitpoints_batch`.
+
+    Returns ``(xfit, yfit)`` where ``yfit`` is the median of
+    ``local_time - tremote - rtt/2`` (client clock minus reference clock)
+    and ``xfit`` the client local time at which that median was observed.
+    """
+    send, srv, recv = net.pingpong_batch(client, ref, n_exchanges)
+    local_times = recv - init_client
+    diffs = local_times - (srv - init_ref) - rtt / 2.0
+    order = np.argsort(diffs)
+    mid = order[len(order) // 2]  # the paper selects the element == median
+    return float(local_times[mid]), float(diffs[mid])
 
 
 def _fitpoint_sweep_true(

@@ -64,6 +64,7 @@ __all__ = [
     "run_windowed_torch",
     "run_windowed_epochs_torch",
     "sample_durations_torch",
+    "scan_host_draws",
     "FusedWindowRun",
     "engine_stats",
     "reset_engine_stats",
@@ -490,6 +491,37 @@ def sample_durations_torch(net, op, msize, nrep, ranks=None, device="cuda"):
     durations, gen = _draw(net, op, msize, p, nrep, dev)
     factors = _imbalance(gen, durations.shape[0], p, op.rank_imbalance, dev)
     return durations[:nrep], factors[:nrep]
+
+
+def scan_host_draws(op, rng, nrep, t0, device="cuda"):
+    """``nrep`` durations of cost-model term ``op`` from host draws: the
+    reference's ``sample_durations`` with its scan and mixture on ``device``.
+
+    Draws from the numpy generator ``rng`` in the reference's order, one
+    double per element each: the AR(1) innovations ``normal(0,
+    noise_sigma)``, the tail coins, the uniforms under the tail magnitudes
+    (``uniform(0.7, 1.3)`` consumes one ``random()`` each, so the
+    generator ends where the reference's does) and the spike coins. Then
+    ``sim_durations_scan`` at one row from ``op._ar_state`` with base time
+    ``t0`` (base time times epoch bias, cold discount included): the
+    kernel on a CUDA device, its plain version on the CPU. The magnitude
+    is ``0.7 + 0.6 * u`` where numpy forms ``0.7 + (1.3 - 0.7) * u``, and
+    the scan associates in the kernel's order, so the durations agree with
+    the reference's to rounding, not to the bit. Returns ``(durations,
+    carry)``: float64 numpy ``(nrep,)`` and the AR(1) state after the last
+    call as a Python float; ``op`` is not changed."""
+    dev = resolve_device(device)
+    draws = (rng.normal(0.0, op.noise_sigma, size=nrep), rng.random(nrep),
+             rng.random(nrep), rng.random(nrep))
+    eps, u_tail, u_mag, u_spike = (torch.from_numpy(x).to(dev)[None]
+                                   for x in draws)
+    t, s = sim_durations_scan(
+        eps, u_tail, u_mag, u_spike, coeff=op.autocorr,
+        state=torch.tensor([op._ar_state], dtype=_F64, device=dev),
+        t0=torch.tensor([t0], dtype=_F64, device=dev),
+        tail_prob=op.tail_prob, tail_shift=op.tail_shift,
+        spike_prob=op.spike_prob, spike_scale=op.spike_scale)
+    return t[0].cpu().numpy(), float(s[0, -1])
 
 
 @dataclass

@@ -14,9 +14,9 @@ pipeline exists to find: a single mis-tuned collective
 main effect of :func:`repro_torch.sweeps.effects.main_effects`.
 
 **The engine axis.** The reference sweeps its window engines (numpy
-against JAX) as a null factor. The port has one engine, and
-``TorchSimBackend`` refuses any other, so the axis keeps its name and its
-role and varies what the port does have two of: where the measurement
+against JAX) as a null factor. The port's numpy engines reproduce the
+reference's draws, not a second draw of them, so the axis keeps its name
+and its role and varies where the port's device engine (``"torch"``)
 runs. Its levels are ``device="cuda"`` (label ``kernel``: the
 hand-written ``sim_scan`` kernel on the card) and ``device="cpu"``
 (label ``plain``: the kernel's plain PyTorch version). Their draws differ

@@ -372,3 +372,52 @@ def test_fused_engine_equals_per_epoch_on_the_card_every_time():
         for (net_u, _, _), (net_f, _, _), u, f in zip(live, fused_live, per_epoch, fused):
             assert np.array_equal(u.times, f.times), trial
             assert np.array_equal(u.errors, f.errors) and np.array_equal(net_u.t, net_f.t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,clock_kw", [("batch", None), ("batch_rw", dict(rw_sigma=1e-7))])
+def test_numpy_engines_scan_on_the_card_as_on_the_cpu(engine, clock_kw):
+    """The reference's batch engines with their durations scanned by
+    ``sim_scan`` on the card (``device="cuda"``) against numpy on the CPU,
+    from identical state, two calls in a row: one launch a call, equal
+    error flags, the durations within 1e-12 of their max, the times and
+    stamps within 1e-12 of the timeline (a time is a difference of two
+    stamps; a duration moved by an ulp can move a stamp by one of its
+    own), the generator in the same state."""
+    _need_gpu("sim_scan")
+    import copy
+
+    from repro_torch.core import ClockParams, SimNet, make_op, make_sync, run_windowed
+    from repro_torch.core.mpi_ops import SimCollective
+    from repro_torch.kernels.sim_scan import sim_durations_scan
+
+    net = SimNet(64, seed=3, clocks=ClockParams(**clock_kw) if clock_kw else None)
+    sync = make_sync("hca", n_fitpts=30, n_exchanges=10).synchronize(net)
+    cpu = (net, sync, make_op("allreduce"))
+    card = copy.deepcopy(cpu)
+    durations = []
+    original = SimCollective.execute_batch
+
+    def capture(self, *args, **kw):
+        ex = original(self, *args, **kw)
+        durations.append(ex.durations)
+        return ex
+
+    try:
+        SimCollective.execute_batch = capture
+        for nrep in (10_000, 3000):
+            launches = sim_durations_scan.launches
+            b = run_windowed(*card, 4096, nrep, 400e-6, device="cuda", engine=engine)
+            assert sim_durations_scan.launches == launches + 1
+            a = run_windowed(*cpu, 4096, nrep, 400e-6, device="cpu", engine=engine)
+            assert sim_durations_scan.launches == launches + 1
+            assert np.array_equal(a.errors, b.errors)
+            on_card, on_cpu = durations[-2:]
+            assert np.abs(on_card - on_cpu).max() <= 1e-12 * np.abs(on_cpu).max()
+            scale = np.abs(a.end_true).max()
+            for k in ("times", "start_true", "end_true", "start_global_est", "end_global_est"):
+                assert np.abs(getattr(a, k) - getattr(b, k)).max() <= 1e-12 * scale, k
+            assert cpu[0].rng.bit_generator.state == card[0].rng.bit_generator.state
+            assert abs(cpu[2]._ar_state - card[2]._ar_state) <= 1e-12
+    finally:
+        SimCollective.execute_batch = original

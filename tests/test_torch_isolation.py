@@ -1,7 +1,10 @@
 """The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
 ``examples/serve_lm_torch.py`` import neither JAX nor the JAX package
 ``repro``, checked statically over the sources and at run time in a
-subprocess where both are blocked (a simulated campaign, a kernel
+subprocess where both are blocked (a simulated campaign, the same
+campaign through the reference's numpy ``batch`` engine, the
+``batch_rw`` and ``scalar`` windows on walking clocks and a JK fitpoint,
+a kernel
 guideline campaign, a two-cell factor sweep, a drift audit, a two-cell
 in-process fleet under soft crashes, and the model zoo's serving path:
 ``repro_torch.configs``, ``repro_torch.models`` and
@@ -66,6 +69,19 @@ spec = CampaignSpec([TestCase("allreduce", 512), TestCase("bcast", 4096)],
 res = Campaign(spec, TorchSimBackend(p=4, device="cpu",
                                      sync_kw=dict(n_fitpts=20, n_exchanges=5))).run()
 assert len(res.records) == 4 and all(r.times.size for r in res.records)
+
+from repro_torch.core import ClockParams, SimNet, make_op, make_sync, run_windowed
+from repro_torch.core.sync import collect_fitpoint
+
+np_res = Campaign(spec, TorchSimBackend(p=4, device="cpu", engine="batch",
+                                        sync_kw=dict(n_fitpts=20, n_exchanges=5))).run()
+assert [r.meta["engine"] for r in np_res.records] == ["batch"] * 4
+net = SimNet(4, seed=2, clocks=ClockParams(rw_sigma=1e-7))
+sync = make_sync("hca", n_fitpts=20, n_exchanges=5).synchronize(net)
+for engine in ("batch_rw", "scalar"):
+    assert run_windowed(net, sync, make_op("bcast"), 256, 10, 300e-6, device="cpu",
+                        engine=engine).times.shape == (10,)
+assert len(collect_fitpoint(net, 1, 0, 2e-5, 5)) == 2
 
 import dataclasses
 from repro_torch import TorchKernelBackend
