@@ -8,7 +8,8 @@ performance-guideline family, the fault-tolerant sweep fleet, the model
 zoo's serving path, its training path, real collectives on
 ``torch.distributed``, the sharded model with its dry run, the five
 reference walkthroughs of ``examples/``, and the reference's numpy
-engines) at sizes users run, and check what comes out.
+engines, the barrier scheme's included, and real collectives inside
+fleet attempts) at sizes users run, and check what comes out.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -79,7 +80,13 @@ Phases, each of which raises (exit code 1) on failure:
  12. the barrier scheme: ``run_barrier_timed`` card == CPU at atol 1e-12,
      noise-free, on affine and walking clocks; then Figs. 11-12's settings
      at p = 512, nrep 10 000 (the barrier's local-max mean must exceed the
-     window scheme's global mean) with both barriers' skew profiles;
+     window scheme's global mean) with both barriers' skew profiles; then
+     ``engine="batch"`` (the reference's draws in its order, scanned by
+     ``sim_scan`` on the card) on ``"cuda"`` against ``"cpu"`` from one
+     state, as phase 24 holds the numpy engines: noise-free and live at
+     p = 16 on affine clocks, then Figs. 11-12's barrier at p = 512, nrep
+     10 000 (Fig. 11's inequality again); walking clocks under
+     ``"batch"`` on the card raise ``ValueError``;
  13. factor sweeps: the stock sweep (tuning, sync_method, window_us,
      dtype; 16 cells) at p = 512, nrep 10 000, 6 epochs, allreduce at 512
      and 4096 B, with a store (sync_method then tuning MATTERS, as the
@@ -169,7 +176,13 @@ Phases, each of which raises (exit code 1) on failure:
      backend (the reference CLI's knobs, epochs and nrep, 4 rounds): the
      fitted values, objective, verdict (a finding, not a gate) and wall,
      its store reloaded; (e) a rank SIGKILLed between two ``measure``
-     calls: the next raises within the timeout and no rank is left;
+     calls: the next raises within the timeout and no rank is left; (f)
+     a fleet of two workers over two gloo ranks sharing the card, on the
+     ``dtype`` grid (float32, bfloat16) of (b)'s ops and sizes, 3 epochs,
+     one attempt crashed mid-epoch: each attempt starts its own groups,
+     the cells, fingerprints and case sets equal the serial run's, with
+     the attempts, retries, quarantines, each group's start-up and both
+     walls, and no rank process alive afterwards;
  22. sharding and launch analysis, in a process of its own (so that no
      process group outlives it): (a) the dry run of gemma2-2b's
      train_4k, prefill_32k and decode_32k cells on the 16x16 mesh (and
@@ -192,10 +205,12 @@ Phases, each of which raises (exit code 1) on failure:
      peak against ``max_memory_allocated`` (a finding, not a gate); (d)
      four gloo ranks sharing the card, a 2x2 ``"cuda"`` mesh, gemma2-2b
      in bf16 at full width: a prefill at batch 2, S 2048 and 2 decode
-     steps, the flash kernel on each rank's batch and head shards, every
-     local call held at phase 7's bf16 check, each rank's part of the
-     logits within ``BF16_DECODE_BOUND`` of the unsharded model's and
-     the plain path's;
+     steps, the flash kernel on each rank's batch and head shards in
+     every layer (q and k that arrive as partial sums are reduce-scattered
+     onto heads; the functional reduce-scatter is probed first on a small
+     tensor), every local call held at phase 7's bf16 check, each rank's
+     part of the logits within ``BF16_DECODE_BOUND`` of the unsharded
+     model's and the plain path's;
  23. the five reference walkthroughs of ``examples/`` on the card, each
      through its ``main`` with ``--device cuda`` at the reference's sizes,
      in the order of ``examples/``: ``compare_impls_torch`` (the f32 flash
@@ -241,7 +256,9 @@ Phases, each of which raises (exit code 1) on failure:
      ``launches_sharded_ranks``, those of 22d's four ranks; ``sim_scan``'s
      and the f32 flash entry add ``launches_examples``, their launches in
      phase 23's walkthroughs; ``sim_scan``'s adds ``launches_batch``, its
-     launches under the numpy engines in phase 24.
+     launches under the numpy engines in phase 24, and
+     ``launches_barrier_batch``, those of phase 12's card calls under
+     ``engine="batch"``.
 
 Every timed kernel in phases 3, 7 and 8 has ``nvidia-smi``'s SM clock
 (now and max), power draw and temperature, sampled right before and after
@@ -1529,10 +1546,58 @@ def phase_rw_campaign(torch, device="cuda", p=512, epochs=4, nrep=100_000) -> in
     return launches
 
 
-def phase_barrier(torch, device="cuda", p=512, nrep=10_000, probes=1000) -> int:
+def barrier_pair(torch, net, sync, op, msize, nrep, what, **kw) -> dict:
+    """One ``run_barrier_timed(engine="batch")`` on ``"cpu"`` and on
+    ``"cuda"`` from one state (the net, sync and op copied first), held
+    as phase 24 holds the numpy engines: ``sim_scan`` launched once on the
+    card and never on the CPU, the durations within 1e-12 relative, every
+    time, stamp and barrier exit within 1e-12 of the run's timeline (its
+    largest stamp), ``net.t``, the AR(1) state and the generator's state
+    the same. Returns the two runs, walls and differences."""
+    import numpy as np
+
+    from repro_torch.core import run_barrier_timed
+    from repro_torch.kernels.sim_scan import sim_durations_scan
+
+    card = copied_state(net, sync, op)
+    out, runs, durs = {}, {}, {}
+    for device, state in (("cpu", (net, sync, op)), ("cuda", card)):
+        with captured_durations([], "sample_durations") as durs[device]:
+            launches = sim_durations_scan.launches
+            t = time.perf_counter()
+            runs[device] = run_barrier_timed(state[0], state[2], msize, nrep, sync=state[1],
+                                             device=device, engine="batch", **kw)
+            torch.cuda.synchronize()
+            out[f"{device}_s"] = time.perf_counter() - t
+            out[f"{device}_launches"] = sim_durations_scan.launches - launches
+    a, b = runs["cpu"], runs["cuda"]
+    require(out["cpu_launches"] == 0 and out["cuda_launches"] == 1,
+            f"{what}: sim_scan launched once on cuda, never on cpu "
+            f"({out['cuda_launches']}, {out['cpu_launches']})")
+    out["dur_rel"] = durations_err(durs["cpu"], durs["cuda"], what)
+    scale = float(np.abs(a.end_true).max())
+    out["scale_s"], out["max_abs"] = scale, 0.0
+    for k in ("times_local", "times_global", "barrier_exit_true", "start_true", "end_true"):
+        x, y = getattr(a, k), getattr(b, k)
+        require(np.array_equal(np.isnan(x), np.isnan(y)), f"{what} {k}: the same NaNs")
+        err = float(np.nan_to_num(np.abs(x - y)).max())
+        require(err <= 1e-12 * scale, f"{what} {k}: |err| {err:.3e} <= 1e-12 x {scale:.3f} s")
+        out["max_abs"] = max(out["max_abs"], err)
+    require(float(np.abs(net.t - card[0].t).max()) <= 1e-12 * scale, f"{what}: net.t")
+    require(abs(op._ar_state - card[2]._ar_state) <= 1e-12, f"{what}: AR(1) carry")
+    require(net.rng.bit_generator.state == card[0].rng.bit_generator.state,
+            f"{what}: the generator in the same state")
+    out["cpu"], out["cuda"] = a, b
+    return out
+
+
+def phase_barrier(torch, device="cuda", p=512, nrep=10_000, probes=1000) -> tuple[int, int]:
     """The barrier scheme: noise-free card == CPU on affine and walking
-    clocks, then Figs. 11-12's settings at full width; returns the barrier
-    run's sim_scan launches."""
+    clocks, then Figs. 11-12's settings at full width; then the same under
+    ``engine="batch"`` (the reference's draws in its order, scanned by
+    ``sim_scan`` on the card), card against CPU. Returns the device
+    engine's Figs. 11-12 barrier run's sim_scan launches and those of every
+    card call under ``"batch"``."""
     import numpy as np
 
     from repro_torch.core import (ClockParams, SimNet, make_op, make_sync,
@@ -1604,7 +1669,57 @@ def phase_barrier(torch, device="cuda", p=512, nrep=10_000, probes=1000) -> int:
           f"{lib_max * 1e6:.3f} us, dissemination {dis_max * 1e6:.3f} us; sim_scan "
           f"launches {launches}; hca sync {t_sync:.2f} s, window {t_window:.2f} s, "
           f"barrier {t_barrier:.2f} s, probes {t_probe:.2f} s")
-    return launches
+
+    # engine="batch": p 16, noise-free then live, affine clocks, synced
+    batch_launches = 0
+    t = time.perf_counter()
+    for label, op_kw16 in (("noise-free", NOISE_FREE), ("live", {})):
+        net16 = SimNet(16, seed=5)
+        sync16 = make_sync("hca", n_fitpts=100, n_exchanges=20).synchronize(net16)
+        what = f"[12 batch] p=16 {label}"
+        pair = barrier_pair(torch, net16, sync16, make_op("allreduce", **op_kw16), 4096, 2000,
+                            what, barrier_exit_skew=40e-6)
+        batch_launches += pair["cuda_launches"]
+        print(f"# {what}, nrep 2000, hca 100x20, library barrier at 40 us exit skew: cuda == "
+              f"cpu, durations within {pair['dur_rel']:.3e} relative, times and stamps within "
+              f"{pair['max_abs']:.3e} s on a {pair['scale_s']:.6f} s timeline; sim_scan "
+              f"launches {pair['cuda_launches']}; cpu {pair['cpu_s']:.2f} s, cuda "
+              f"{pair['cuda_s']:.2f} s")
+    # walking clocks draw between two barriers: the card refuses, before any draw
+    walking = SimNet(16, seed=5, clocks=ClockParams(rw_sigma=RW_SIGMA))
+    state = walking.rng.bit_generator.state
+    try:
+        run_barrier_timed(walking, make_op("allreduce"), 4096, 10, device=device,
+                          engine="batch")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        refused = None
+    require(refused is not None and "engine='torch'" in refused and "device='cpu'" in refused
+            and walking.rng.bit_generator.state == state,
+            "[12 batch] walking clocks on cuda raise ValueError naming engine='torch' and "
+            "device='cpu', before any draw")
+    print(f"# [12 batch] walking clocks on {device}: ValueError ({refused})")
+    # Figs. 11-12's barrier at full width, from the bench's seed
+    net_b = SimNet(p, seed=11)
+    pair = barrier_pair(torch, net_b, None, make_op("allreduce", **op_kw), 32768, nrep,
+                        f"[12 batch] p={p}", barrier_exit_skew=40e-6)
+    batch_launches += pair["cuda_launches"]
+    batch_mean = float(pair["cuda"].times_local.mean())
+    require(np.isfinite(pair["cuda"].times_local).all() and batch_mean > window_mean,
+            f"Fig. 11 under engine='batch': barrier local-max mean {batch_mean * 1e6:.3f} us "
+            f"> window global mean {window_mean * 1e6:.3f} us")
+    print(f"# [12 batch] p={p} nrep {nrep} allreduce@32768 {op_kw}, library barrier at 40 us "
+          f"exit skew: cuda == cpu, durations within {pair['dur_rel']:.3e} relative, times and "
+          f"stamps within {pair['max_abs']:.3e} s on a {pair['scale_s']:.6f} s timeline; "
+          f"local-max mean {batch_mean * 1e6:.3f} us (cpu "
+          f"{float(pair['cpu'].times_local.mean()) * 1e6:.3f} us; the device engine's "
+          f"{barrier_mean * 1e6:.3f} us) > window global mean {window_mean * 1e6:.3f} us; "
+          f"sim_scan launches {pair['cuda_launches']}; cpu {pair['cpu_s']:.2f} s, cuda "
+          f"{pair['cuda_s']:.2f} s")
+    print(f"# [12 batch] sim_scan launches under engine='batch' {batch_launches}; "
+          f"{time.perf_counter() - t:.2f} s")
+    return launches, batch_launches
 
 AUDIT_OPS = ("allreduce", "bcast", "alltoall")
 FAST_SYNC = dict(n_fitpts=60, n_exchanges=20)   # benchmarks/run.py audit, calibrate
@@ -3217,6 +3332,116 @@ def _collective_runs(torch, device) -> int:
     return launches
 
 
+#: 21f's grid and cases: the dtype axis over 21b's ops and sizes
+FLEET_DTYPES = ("float32", "bfloat16")
+FLEET_SIZES = (1 << 10, 1 << 16, 1 << 20)
+FLEET_EPOCHS, FLEET_NREP = 3, 10
+#: seed 1 crashes cell 1's first attempt at its first measure call, and no
+#: other attempt (FaultPlan.decide depends on the seed, cell and attempt only)
+FLEET_CRASH = dict(seed=1, p_crash=0.5, within_calls=2)
+
+
+def phase_collective_fleet(torch, device="cuda") -> dict:
+    """21f: real collectives inside fleet attempts. The ``dtype`` grid over
+    two gloo ranks sharing the card, serial, then on a fleet of two
+    workers with one attempt crashed; returns the fleet's stats."""
+    from repro_torch.fleet.scheduler import stop_worker_server
+
+    t = time.perf_counter()
+    try:
+        out = _collective_fleet(torch, device)
+    finally:
+        stop_worker_server()        # the fork server the attempts forked from
+    print(f"# [21f] {time.perf_counter() - t:.2f} s")
+    return out
+
+
+def _collective_fleet(torch, device) -> dict:
+    import multiprocessing as mp
+    import tempfile
+
+    from repro_torch.campaign import (ResultStore, SweepScheduler, SweepSpec,
+                                      TorchCollectiveBackend)
+    from repro_torch.campaign.ranks import rank_alive
+    from repro_torch.core import ExperimentDesign, FactorAxis, FactorGrid, TestCase
+    from repro_torch.fleet import FaultPlan, FleetConfig, FleetScheduler
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_collective_fleet_"))
+    grid = FactorGrid((FactorAxis("dtype", FLEET_DTYPES),), design_seed=0)
+    spec = SweepSpec(grid=grid, cases=[TestCase(op, m) for op in ("psum", "all_gather",
+                                                                  "all_to_all")
+                                       for m in FLEET_SIZES],
+                     design=ExperimentDesign(n_launch_epochs=FLEET_EPOCHS, nrep=FLEET_NREP,
+                                             seed=0),
+                     name="collective-fleet")
+    backend = TorchCollectiveBackend(n_ranks=2, device=device, dist_backend="gloo")
+    before = set(mp.active_children())
+
+    def cells(store, sweep_id):
+        return {idx: (fp, sorted((r.case.op, r.case.msize, r.epoch, len(r.times))
+                                 for r in store.records(fp)))
+                for idx, fp in store.sweep_cells(sweep_id).items()}
+
+    t = time.perf_counter()
+    serial_store = ResultStore(tmp / "serial.jsonl")
+    serial_res = SweepScheduler(spec, backend, serial_store, n_workers=1).run()
+    serial_wall = time.perf_counter() - t
+    serial = cells(serial_store, serial_res.sweep_id)
+    want = sorted((c.op, c.msize, e, FLEET_NREP) for c in spec.cases
+                  for e in range(FLEET_EPOCHS))
+    require(len(serial) == len(FLEET_DTYPES) and all(r == want for _, r in serial.values()),
+            "[21f] serial: every cell's cases x epochs at nrep")
+    serial_starts = sorted({(r.epoch, r.meta["group_start_s"]) for fp, _ in serial.values()
+                            for r in serial_store.records(fp)})
+    serial_pids = {pid for fp, _ in serial.values() for r in serial_store.records(fp)
+                   for pid in r.meta["rank_pids"]}
+    print(f"# [21f] serial: {len(serial)} cells ({', '.join(FLEET_DTYPES)}) x "
+          f"{len(spec.cases)} cases (psum, all_gather, all_to_all at "
+          f"{', '.join(map(str, FLEET_SIZES))} B) x {FLEET_EPOCHS} epochs at nrep "
+          f"{FLEET_NREP}, 2 gloo ranks on {device}, a fresh group each epoch: wall "
+          f"{serial_wall:.2f} s; group start-ups "
+          + ", ".join(f"{s:.3f}" for _, s in serial_starts) + " s")
+
+    plan = FaultPlan(**FLEET_CRASH)
+    store = ResultStore(tmp / "fleet.jsonl")
+    cfg = FleetConfig(n_workers=2, lease_ttl=120.0, poll_s=0.05, faults=plan)
+    t = time.perf_counter()
+    res = FleetScheduler(spec, backend, store, cfg).run()
+    fleet_wall = time.perf_counter() - t
+    f = res.fleet
+    attempts = f["n_done"] + f["n_failed_attempts"]
+    got = cells(store, res.sweep_id)
+    require(not res.quarantined and res.n_cells_measured == len(FLEET_DTYPES)
+            and f["start_method"] == "forkserver" and f["n_failed_attempts"] == 1,
+            f"[21f] fleet: {len(FLEET_DTYPES)} cells measured on forked workers, the one "
+            f"crashed attempt retried, none quarantined ({f['n_failed_attempts']} failed, "
+            f"{f['n_quarantined']} quarantined)")
+    require(got == serial, "[21f] fleet: the serial run's cells, fingerprints and case sets")
+    groups = FLEET_EPOCHS * len(FLEET_DTYPES) + 1
+    pids = f["rank_pids"]
+    require(len(pids) == len(set(pids)) == 2 * groups and len(f["group_start_s"]) == groups,
+            f"[21f] fleet: a fresh group of 2 ranks for each of {groups} epochs begun "
+            f"({len(pids)} rank pids, {len(f['group_start_s'])} groups)")
+    left = [pid for pid in list(pids) + sorted(serial_pids) if rank_alive(pid)]
+    deadline = time.monotonic() + 5.0
+    while (left or set(mp.active_children()) - before) and time.monotonic() < deadline:
+        time.sleep(0.05)
+        left = [pid for pid in left if rank_alive(pid)]
+    require(not left and not set(mp.active_children()) - before,
+            f"[21f] no rank process alive after the fleet ({left})")
+    print(f"# [21f] fleet of 2 workers, crash {FLEET_CRASH}: wall {fleet_wall:.2f} s against "
+          f"the serial {serial_wall:.2f} s ({fleet_wall / serial_wall:.2f}x); {attempts} "
+          f"attempts, {f['n_failed_attempts']} failed and retried, {f['n_quarantined']} "
+          f"quarantined; fork server ready in {f['server_start_s']:.2f} s, longest start to "
+          f"first heartbeat {f['first_heartbeat_s']:.3f} s; group start-ups "
+          + ", ".join(f"{s:.3f}" for s in f["group_start_s"])
+          + f" s; outputs held exactly against expected_collective on every rank at each "
+          f"build (a case that differs fails its attempt); fingerprints and case sets == "
+          f"serial; {len(pids)} rank pids logged, {f['n_rank_pids_killed']} killed after "
+          f"their attempt ended, none alive (nor the serial run's {len(serial_pids)})")
+    return dict(f, fleet_wall=fleet_wall, serial_wall=serial_wall)
+
+
 #: 22b's prefill and decode shapes: phase 19a's sequence, 19b's serving batch
 SHARDED_PREFILL = 8192
 SHARDED_BATCH, SHARDED_PROMPT, SHARDED_STEPS = 4, 128, 4
@@ -3547,6 +3772,14 @@ def gloo_rank(torch, rank: int, rdv: str, out_path: str) -> None:
     gather = blocking_gather_over_gloo(torch)
     try:
         mesh = init_device_mesh("cuda", GLOO_MESH, mesh_dim_names=("data", "model"))
+        # the functional reduce-scatter that attention's partial sums take
+        # onto heads (Partial -> Shard), probed on a small tensor first
+        from torch.distributed.tensor import DTensor, Partial, Shard
+
+        x = torch.arange(2 * 3 * 4 * 2, dtype=torch.float32, device="cuda").reshape(2, 3, 4, 2)
+        rs = DTensor.from_local(x, mesh, [Partial(), Partial()]).redistribute(
+            mesh, [Shard(0), Shard(2)])
+        reduce_scatter = bool(torch.equal(rs.to_local(), local_part(GLOO_RANKS * x, rs)))
         cfg = get_config(GEMMA2)
         plain = init_params(cfg, seed=26)
         sharded = distribute(copy.deepcopy(plain), param_specs(plain, cfg, mesh), mesh)
@@ -3568,7 +3801,7 @@ def gloo_rank(torch, rank: int, rdv: str, out_path: str) -> None:
             want = local_part(want, got).float()
             return float((got.to_local().float() - want).abs().max() / want.abs().max())
 
-        res = {"rank": rank}
+        res = {"rank": rank, "reduce_scatter": reduce_scatter}
         step = make_prefill_step(cfg)
         batch = {"tokens": toks}
         want = step(plain, batch)
@@ -3641,6 +3874,11 @@ def phase_gloo_ranks() -> dict:
     def on_heads(c):
         return (c[0][2], c[1][2]) == heads
 
+    require(all(r["reduce_scatter"] for r in ranks),
+            "[22d] the functional reduce-scatter (Partial -> Shard over both mesh dims) "
+            "gives each rank its part of the sum")
+    print("# [22d] the functional reduce-scatter over gloo on CUDA tensors (Partial -> "
+          "Shard(0), Shard(2) on the 2x2 mesh): each rank's part of the sum, exact")
     for r in ranks:
         pre = r["prefill"]
         calls = pre["calls"] + [c for d in r["decode"] for c in d["calls"]]
@@ -3666,16 +3904,14 @@ def phase_gloo_ranks() -> dict:
                 f"[22d] rank {r['rank']}: the flash kernel once a layer on local shards")
         require(len(calls) == cfg.n_layers * (1 + GLOO_STEPS) and all(c[4] for c in calls),
                 f"[22d] rank {r['rank']}: every local flash call at phase 7's bf16 check")
-        # a batch shard always; a head shard in every decode call (the
-        # cache's KV heads are split) and in the prefill's first layer.
-        # Later prefill layers get what DTensor's strategy gives: head
-        # shards with torch 2.11 on the card; with torch 2.13 on the CPU,
-        # q and k as partial sums over ``model``, which local_map's
-        # placements reduce whole (all heads on each rank)
+        # a batch shard and this rank's heads in every call of every layer,
+        # prefill and decode: where q and k arrive as partial sums over
+        # ``model`` (torch 2.13 on the CPU, from the second layer on), they
+        # are reduce-scattered onto heads, not reduced whole
         require(all(c[0][0] == c[1][0] == GLOO_BATCH // GLOO_MESH[0] for c in calls)
-                and on_heads(pre["calls"][0])
-                and all(on_heads(c) for d in r["decode"] for c in d["calls"]),
-                f"[22d] rank {r['rank']}: the kernel ran on batch and head shards")
+                and all(on_heads(c) for c in calls),
+                f"[22d] rank {r['rank']}: the kernel ran on batch and head shards in every "
+                f"layer ({sum(map(on_heads, calls))} of {len(calls)} calls on head shards)")
     print(f"# [22d] {time.perf_counter() - t:.2f} s")
     return dict(ranks=ranks, launches=sum(r["prefill"]["launches"] + sum(
         d["launches"] for d in r["decode"]) for r in ranks))
@@ -3797,23 +4033,25 @@ def phase_walkthroughs(torch) -> dict:
 
 
 @contextlib.contextmanager
-def captured_durations(store: list):
-    """Append the durations of every ``execute_batch`` call (the numpy
-    engines' draws) to ``store`` while the block runs."""
+def captured_durations(store: list, method: str = "execute_batch"):
+    """Append the durations of every ``SimCollective.<method>`` call
+    (``execute_batch``: the numpy engines' draws; ``sample_durations``: the
+    barrier scheme's under ``engine="batch"``) to ``store`` while the block
+    runs."""
     from repro_torch.core.mpi_ops import SimCollective
 
-    original = SimCollective.execute_batch
+    original = getattr(SimCollective, method)
 
     def capture(self, *args, **kw):
-        ex = original(self, *args, **kw)
-        store.append(ex.durations)
-        return ex
+        out = original(self, *args, **kw)
+        store.append(getattr(out, "durations", out))
+        return out
 
-    SimCollective.execute_batch = capture
+    setattr(SimCollective, method, capture)
     try:
         yield store
     finally:
-        SimCollective.execute_batch = original
+        setattr(SimCollective, method, original)
 
 
 def durations_err(cpu: list, card: list, what: str) -> float:
@@ -4049,7 +4287,7 @@ def main() -> int:
     t = time.perf_counter()
     phase_rw_engines(torch)
     kernel["launches_rw_campaign"] = phase_rw_campaign(torch)
-    kernel["launches_barrier"] = phase_barrier(torch)
+    kernel["launches_barrier"], kernel["launches_barrier_batch"] = phase_barrier(torch)
     print(f"# [10-12] {time.perf_counter() - t:.2f} s")
     # the layers over the campaign: sweeps, the drift audit, the calibration
     t = time.perf_counter()
@@ -4089,6 +4327,8 @@ def main() -> int:
     # real collectives on torch.distributed; the fit's candidates sample
     # through sim_scan
     kernel["launches_collective_calibrate"] = phase_collectives(torch)
+    # the same collectives inside fleet attempts
+    phase_collective_fleet(torch)
     # sharding and launch analysis: bf16 flash on DTensors' local shards
     sharding = phase_sharding(torch)
     flash_bf16["launches_sharded"] = sharding["b"]["launches_sharded"]

@@ -8,9 +8,13 @@ pluggable measurement-backend API, with adaptive nrep and a persistent
 result store. The clocks and the sync run on the host in numpy, as in
 the reference (the same seed prints the same HCA lines); every duration
 is drawn through ``sim_scan`` on ``--device`` (the card by default).
+``--engine batch`` draws every duration from the host's generator in the
+reference's order (its scan still runs in ``sim_scan`` on the card), so
+that on the CPU the window and barrier lines are the reference's.
 
     PYTHONPATH=src python examples/quickstart_torch.py
     PYTHONPATH=src python examples/quickstart_torch.py --device cpu
+    PYTHONPATH=src python examples/quickstart_torch.py --device cpu --engine batch
 """
 
 import argparse
@@ -26,9 +30,10 @@ from repro_torch.core import (
 )
 
 
-def walkthrough(device: str = "cuda") -> dict:
-    """Steps 1-3 of the reference at its sizes. Returns the printed HCA
-    lines, the two measurements and the comparison rows."""
+def walkthrough(device: str = "cuda", engine: str = "torch") -> dict:
+    """Steps 1-3 of the reference at its sizes, on ``engine`` (``"torch"``,
+    the device engine, or ``"batch"``, the reference's draws). Returns the
+    printed HCA lines, the two measurements and the comparison rows."""
     # --- 1. drift-corrected clock synchronization (HCA, §4.4) -------------
     net = SimNet(16, seed=0)
     sync = make_sync("hca", n_fitpts=200, n_exchanges=40).synchronize(net)
@@ -43,10 +48,10 @@ def walkthrough(device: str = "cuda") -> dict:
     # --- 2. window-based vs barrier-based measurement (§4.6) ---------------
     op = make_op("allreduce")
     wr = run_windowed(net, sync, op, msize=8192, nrep=200, win_size=400e-6,
-                      device=device)
+                      device=device, engine=engine)
     net2 = SimNet(16, seed=0)
     br = run_barrier_timed(net2, op, 8192, 200, barrier_exit_skew=40e-6,
-                           device=device)
+                           device=device, engine=engine)
     print(f"windowed global time : {wr.valid_times.mean()*1e6:8.2f}us "
           f"(invalid {wr.invalid_fraction*100:.1f}%)")
     print(f"barrier local-max    : {br.times_local.mean()*1e6:8.2f}us "
@@ -62,9 +67,10 @@ def walkthrough(device: str = "cuda") -> dict:
                                 rel_ci_target=0.03, seed=42),
         name="quickstart",
     )
-    lib_a = TorchSimBackend(p=8, seed0=100, op_kw=dict(gamma=2e-6), device=device)
+    lib_a = TorchSimBackend(p=8, seed0=100, op_kw=dict(gamma=2e-6), device=device,
+                            engine=engine)
     lib_b = TorchSimBackend(p=8, seed0=900, op_kw=dict(gamma=2e-6, alpha=3.8e-6),
-                            device=device)
+                            device=device, engine=engine)
 
     with tempfile.TemporaryDirectory() as td:
         store_a = ResultStore(os.path.join(td, "libA.jsonl"))
@@ -90,8 +96,11 @@ def walkthrough(device: str = "cuda") -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--engine", default="torch", choices=("torch", "batch"),
+                    help="torch (default: draws on the device) or batch (the "
+                         "reference's draws, in its order)")
     args = ap.parse_args(argv)
-    return walkthrough(args.device)
+    return walkthrough(args.device, args.engine)
 
 
 if __name__ == "__main__":

@@ -647,6 +647,12 @@ class TorchCollectiveBackend:
             self._group.close()
             self._group = None
 
+    def __getstate__(self) -> dict:
+        """A pickled backend carries no rank group: its pipes and process
+        handles belong to this process, so a sweep worker or a fleet
+        attempt that receives the backend starts groups of its own."""
+        return dict(self.__dict__, _group=None)
+
     def __enter__(self) -> "TorchCollectiveBackend":
         return self
 

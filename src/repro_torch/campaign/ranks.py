@@ -21,6 +21,13 @@ answer a small command set over one pipe each (``build``, ``check``,
   There is no retry and no fallback. ``close()`` ends the group politely;
   a ``weakref.finalize`` ends it if its owner forgets; a rank whose pipe
   closes (its parent died) exits.
+* **Ranks outlive no fleet attempt.** A fleet attempt that starts groups
+  names a file (:func:`log_ranks`); each group appends every rank's
+  process id and start time there as the rank starts, and its start-up
+  once every rank has replied, so the scheduler can find and end ranks
+  that an attempt left behind when it crashed or was killed
+  (:func:`read_rank_log`, :func:`rank_alive`): they are children of the
+  attempt's fork server, not of the attempt.
 * **The plain version.** :func:`expected_collective` is what each rank's
   output must be, given the reference's inputs (rank ``r`` holds ``r``
   in every element); each rank holds a newly built case against it.
@@ -50,7 +57,8 @@ import torch
 from ..simengine import resolve_device
 
 __all__ = ["RankGroup", "ensure_ranks", "resolve_dist_backend",
-           "expected_collective", "COLLECTIVES"]
+           "expected_collective", "log_ranks", "read_rank_log", "rank_alive",
+           "COLLECTIVES"]
 
 #: The collectives a rank runs, by the reference's case names.
 COLLECTIVES = ("psum", "all_gather", "all_to_all")
@@ -58,6 +66,63 @@ COLLECTIVES = ("psum", "all_gather", "all_to_all")
 #: What the fork server imports once, so each rank forks with them loaded
 #: (neither initialises CUDA on import).
 _PRELOAD = ["torch", "torch.distributed", "repro_torch.campaign.ranks"]
+
+
+#: Where this process's groups log their ranks (:func:`log_ranks`).
+_rank_log: str | None = None
+
+
+def log_ranks(path: str | None) -> None:
+    """From now on, every :class:`RankGroup` this process starts appends
+    a line ``rank <pid> <start time>`` to ``path`` as each rank starts,
+    and ``group <start-up s>`` once all have replied (``None`` stops it).
+    The start time, in clock ticks since boot, tells a rank from a later
+    process that reuses its id."""
+    global _rank_log
+    _rank_log = path
+
+
+def _log(line: str) -> None:
+    if _rank_log is not None:
+        with open(_rank_log, "a") as f:
+            f.write(line + "\n")
+
+
+def _proc_stat(pid: int) -> tuple[str, str] | None:
+    """``(state, start time)`` of process ``pid`` from ``/proc``, or
+    ``None`` when there is no such process."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+    except (OSError, IndexError):
+        return None
+    return fields[0], fields[19]
+
+
+def rank_alive(pid: int, start: str | None = None) -> bool:
+    """Whether process ``pid`` still runs: it exists, is not a zombie (an
+    exited rank waiting for its parent, the fork server, to reap it) and,
+    where ``start`` is given, started at that time."""
+    stat = _proc_stat(pid)
+    return stat is not None and stat[0] not in "ZX" and start in (None, stat[1])
+
+
+def read_rank_log(path) -> tuple[list[tuple[int, str]], list[float]]:
+    """What :func:`log_ranks` wrote to ``path``: the ranks' ``(pid, start
+    time)`` pairs and the groups' start-ups [s]; both empty when there is
+    no such file."""
+    ranks, startups = [], []
+    try:
+        with open(path) as f:
+            for line in f:
+                kind, *fields = line.split() or ("",)
+                if kind == "rank":
+                    ranks.append((int(fields[0]), fields[1]))
+                elif kind == "group":
+                    startups.append(float(fields[0]))
+    except FileNotFoundError:
+        pass
+    return ranks, startups
 
 
 def resolve_dist_backend(device, dist_backend: str | None = None) -> str:
@@ -341,8 +406,9 @@ class RankGroup:
     first rank's start to every rank's reply after its first barrier;
     ``pids`` are the ranks' process ids.
 
-    A daemonic process (a pool worker, a fleet attempt) cannot start
-    children, so a group cannot start there: that raises.
+    A daemonic process cannot start children, so a group cannot start
+    there: that raises. A sweep's pool workers and a fleet's attempts are
+    not daemonic, so each of them starts its own groups.
     """
 
     def __init__(self, n: int, device="cuda", dist_backend: str | None = None,
@@ -354,9 +420,8 @@ class RankGroup:
         self.timeout_s = float(timeout_s)
         if mp.current_process().daemon:
             raise RuntimeError(
-                "RankGroup: a daemonic process (a sweep pool worker or a "
-                "fleet attempt) cannot start rank processes; run the "
-                "collective backend in a non-daemonic process")
+                "RankGroup: a daemonic process cannot start rank processes; "
+                "run the collective backend in a non-daemonic process")
         self.built: set[str] = set()
         self._procs: list = []
         self._conns: list = []
@@ -380,11 +445,15 @@ class RankGroup:
                 proc.start()
                 self._procs.append(proc)
                 child.close()
+                if _rank_log is not None:
+                    stat = _proc_stat(proc.pid)
+                    _log(f"rank {proc.pid} {stat[1] if stat else '-'}")
         except BaseException:
             self._finalizer()
             raise
         self.pids = self._gather("start")
         self.startup_s = time.perf_counter() - t0
+        _log(f"group {self.startup_s!r}")
 
     # -- commands ------------------------------------------------------------
 

@@ -15,13 +15,25 @@ Figure 11's gap between the two is reproduced by :func:`run_barrier_timed`
 returning *both* quantities, and Fig. 12's barrier exit-skew probe by
 :func:`probe_barrier_skew`.
 
-:func:`run_barrier_timed` draws all operation durations and finish
-imbalances up front through
-:func:`~repro_torch.simengine.sample_durations_torch` (``sim_scan`` on the
-card, one launch per cost-model term), runs the barrier loop on the host
-with ``net.rng`` latencies, and defers every clock read to vectorized
-affine conversions after the loop; random-walk clocks read lazily per
-observation instead (their reads are stateful and order-dependent).
+:func:`run_barrier_timed` runs one of two engines (:data:`BARRIER_ENGINES`):
+
+  * ``engine="torch"`` (the default) draws all operation durations and
+    finish imbalances up front on the device through
+    :func:`~repro_torch.simengine.sample_durations_torch` (``sim_scan`` on
+    the card, one launch per cost-model term);
+  * ``engine="batch"`` draws as the reference does, from ``net.rng`` in
+    its order: on affine clocks the durations through
+    :meth:`~repro_torch.core.mpi_ops.SimCollective.sample_durations` (on
+    a CUDA device its scan runs in ``sim_scan`` from the same host
+    draws), then the ``(nrep, p)`` imbalance, then the barriers; on
+    random-walk clocks one :meth:`~repro_torch.core.mpi_ops.SimCollective.execute`
+    per observation, after its barrier, on the host only. On the CPU it
+    reproduces the reference's run bit for bit from one seed.
+
+Both run the barrier loop on the host with ``net.rng`` latencies and defer
+every clock read to vectorized affine conversions after the loop;
+random-walk clocks read lazily per observation instead (their reads are
+stateful and order-dependent).
 """
 
 from __future__ import annotations
@@ -34,7 +46,11 @@ from .mpi_ops import SimCollective
 from .simnet import SimNet
 from .sync.base import SyncResult
 
-__all__ = ["BarrierRun", "run_barrier_timed", "probe_barrier_skew"]
+__all__ = ["BarrierRun", "BARRIER_ENGINES", "run_barrier_timed", "probe_barrier_skew"]
+
+#: The engines of :func:`run_barrier_timed`, by :data:`~repro_torch.core.window.ENGINES`'
+#: names: the device engine and the reference's numpy order.
+BARRIER_ENGINES = ("torch", "batch")
 
 
 @dataclass
@@ -65,6 +81,7 @@ def run_barrier_timed(
     use_library_barrier: bool = True,
     ranks: list[int] | None = None,
     device="cuda",
+    engine: str = "torch",
 ) -> BarrierRun:
     """Algorithm 1 with SYNC_PROCESSES = MPI_Barrier.
 
@@ -72,17 +89,48 @@ def run_barrier_timed(
     run can report both the local-max and the global completion time — the
     §4.6 experiment design. ``barrier_exit_skew`` models implementations
     whose barrier releases ranks far apart (Fig. 12: >40 us for MVAPICH).
-    The durations are drawn on ``device``.
+    ``engine`` is one of :data:`BARRIER_ENGINES` (see the module's
+    docstring); the durations are drawn, or scanned, on ``device``.
+    ``engine="batch"`` on random-walk clocks draws each observation's
+    duration between two barriers, so it runs on the host and wants
+    ``device="cpu"``: on a CUDA device it raises ``ValueError``.
     """
-    from ..simengine import sample_durations_torch
+    if engine not in BARRIER_ENGINES:
+        raise ValueError(f"run_barrier_timed: unknown engine {engine!r}; use "
+                         + "|".join(BARRIER_ENGINES))
+    from ..simengine import resolve_device, sample_durations_torch
 
+    dev = resolve_device(device)
     ranks = list(range(net.p)) if ranks is None else ranks
     p = len(ranks)
-    dur, factors = sample_durations_torch(net, op, msize, nrep, ranks, device)
-    span = (dur[:, None] * factors).cpu().numpy()
-    if any(net.clocks[r].rw_sigma > 0.0 for r in ranks):
+    walking = any(net.clocks[r].rw_sigma > 0.0 for r in ranks)
+    if engine == "batch" and walking:
+        if dev.type != "cpu":
+            raise ValueError(
+                "run_barrier_timed(engine='batch') on random-walk clocks draws "
+                "each duration between two barriers on the host; pass "
+                f"device='cpu', or engine='torch' to draw on {str(device)!r}")
+
+        def finish(obs, start_true):
+            return op.execute(net, msize, ranks).end_true
+
         return _run_barrier_timed_scalar(
-            net, span, sync, barrier_exit_skew, use_library_barrier, ranks)
+            net, finish, nrep, sync, barrier_exit_skew, use_library_barrier, ranks)
+    if engine == "batch":
+        dur = op.sample_durations(net, p, msize, nrep, device=dev)
+        imb = net.rng.normal(0.0, op.rank_imbalance, size=(nrep, p))
+        span = dur[:, None] * np.maximum(0.25, 1.0 + imb)
+    else:
+        dur, factors = sample_durations_torch(net, op, msize, nrep, ranks, dev)
+        span = (dur[:, None] * factors).cpu().numpy()
+    if walking:
+        def finish(obs, start_true):
+            end_true = float(np.max(start_true)) + span[obs]
+            net.t[ranks] = end_true
+            return end_true
+
+        return _run_barrier_timed_scalar(
+            net, finish, nrep, sync, barrier_exit_skew, use_library_barrier, ranks)
 
     bx = np.empty((nrep, p))
     st = np.empty((nrep, p))
@@ -123,7 +171,8 @@ def run_barrier_timed(
 
 def _run_barrier_timed_scalar(
     net: SimNet,
-    span: np.ndarray,
+    finish,
+    nrep: int,
     sync: SyncResult | None,
     barrier_exit_skew: float,
     use_library_barrier: bool,
@@ -131,9 +180,11 @@ def _run_barrier_timed_scalar(
 ) -> BarrierRun:
     """Per-observation loop for random-walk clocks: each clock is read
     lazily in the reference's order (start stamps after the barrier, the
-    collective's all-in and finish from this observation's pre-drawn
-    ``span`` row, end stamps, then the global conversions)."""
-    nrep, p = span.shape
+    collective's all-in and finish, end stamps, then the global
+    conversions). ``finish(obs, start_true)`` runs observation ``obs``'s
+    collective from the ranks' true start times: it moves ``net.t`` to
+    their finishes and returns them."""
+    p = len(ranks)
     tl = np.empty(nrep)
     tg = np.full(nrep, np.nan)
     bx = np.empty((nrep, p))
@@ -145,8 +196,7 @@ def _run_barrier_timed_scalar(
         bx[obs] = exit_true
         start_local = np.array([net.local_time(r) for r in ranks])
         start_true = net.t[ranks].copy()
-        end_true = float(np.max(start_true)) + span[obs]
-        net.t[ranks] = end_true
+        end_true = finish(obs, start_true)
         end_local = np.array([net.local_time(r) for r in ranks])
         st[obs] = start_true
         et[obs] = end_true

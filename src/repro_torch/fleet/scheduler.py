@@ -31,6 +31,19 @@ touches CUDA; each attempt is forked from it cheaply and opens its own
 context. The server is started, and the ``sim_scan`` kernel built, before
 the first lease is granted, so neither counts against a worker's lease.
 
+Attempts are not daemonic, so that an attempt over real collectives
+(:class:`~repro_torch.campaign.TorchCollectiveBackend`) can start its rank
+groups. The scheduler ends them itself: every attempt still running when
+:meth:`FleetScheduler.run` leaves, for whatever reason, is killed, and so,
+through an ``atexit`` hook held while it runs, is every attempt still
+running when the interpreter exits (what the daemon flag would otherwise
+have done). The ranks are children of the
+attempt's own fork server, not of the attempt, so an attempt logs each
+rank's process id beside its heartbeat
+(:func:`~repro_torch.campaign.ranks.log_ranks`), and once the attempt
+has ended, by success, crash or lease, the scheduler kills any of them
+that still runs and waits until none does.
+
 The heartbeat is progress, not liveness: a worker touches its ``.hb``
 file after every durably appended record, so an alive-but-stalled worker
 (straggler) goes quiet exactly like a dead one and loses its lease. The
@@ -41,14 +54,17 @@ heartbeats: the numbers a ``lease_ttl`` must exceed.
 
 from __future__ import annotations
 
+import atexit
 import multiprocessing as mp
 import os
+import signal
 import time
 import warnings
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable
 
+from ..campaign import ranks
 from ..campaign.core import Campaign, CampaignSpec
 from ..campaign.store import ResultStore
 from ..campaign.sweep import CellResult, SweepResult, SweepScheduler, SweepSpec
@@ -105,7 +121,7 @@ class FleetSweepResult(SweepResult):
 
 
 def _fleet_worker(backend, cases, design, name, shard_path, hb_path,
-                  plan, cell_index, attempt, epochs=None):
+                  plan, cell_index, attempt, epochs=None, ranks_path=None):
     """One claimed cell, one process, one private shard store.
 
     Runs the cell as an ordinary campaign against the shard (``epochs``
@@ -113,9 +129,13 @@ def _fleet_worker(backend, cases, design, name, shard_path, hb_path,
     after every durable record append. On any failure the error lands in
     ``<shard>.err`` and the process exits nonzero — the parent discards
     the shard either way, so a worker never has to clean up after itself
-    (and an injected hard crash *cannot*).
+    (and an injected hard crash *cannot*). Rank groups the backend starts
+    log their ranks to ``ranks_path``; a backend with ``close`` is closed
+    after a clean run.
     """
+    ranks.log_ranks(ranks_path)
     try:
+        inner = backend
         if plan is not None and plan.any_faults():
             backend = FaultyBackend(backend, plan, cell_index,
                                     attempt=attempt, hard=True,
@@ -128,6 +148,8 @@ def _fleet_worker(backend, cases, design, name, shard_path, hb_path,
 
         Campaign(CampaignSpec(list(cases), design, name=name),
                  backend, store).run(on_record=beat, epochs=epochs)
+        if hasattr(inner, "close"):
+            inner.close()
         os._exit(0)
     except BaseException as e:   # noqa: BLE001 — the report IS the handling
         try:
@@ -158,6 +180,29 @@ def stop_worker_server() -> None:
     one. (The standard library offers no public call for this.)"""
     from multiprocessing import forkserver
     forkserver._forkserver._stop()
+
+
+def _end_ranks(logged, grace_s: float = 10.0) -> int:
+    """Every rank an ended attempt logged, as ``(pid, start time)``:
+    SIGKILL those still running, then wait at most ``grace_s`` until none
+    runs. Returns how many had to be killed; raises ``RuntimeError`` if
+    one outlives the wait."""
+    killed = 0
+    for pid, start in logged:
+        if ranks.rank_alive(pid, start):
+            try:
+                os.kill(pid, signal.SIGKILL)
+                killed += 1
+            except ProcessLookupError:
+                pass
+    deadline = time.monotonic() + grace_s
+    while any(ranks.rank_alive(pid, start) for pid, start in logged):
+        if time.monotonic() > deadline:
+            left = [pid for pid, start in logged if ranks.rank_alive(pid, start)]
+            raise RuntimeError(f"fleet: rank processes {left} outlived their "
+                               f"attempt by {grace_s:g} s after SIGKILL")
+        time.sleep(0.02)
+    return killed
 
 
 def _prepare_kernels(pending) -> None:
@@ -199,6 +244,7 @@ class FleetScheduler(SweepScheduler):
         self._quarantined: dict[int, dict] = {}
         self._queue_stats: dict = {}
         self._timing: dict = {}
+        self._ranks: dict = {}
         self._n_corrupt_shard_lines = 0
 
     # -- public ------------------------------------------------------------
@@ -208,12 +254,15 @@ class FleetScheduler(SweepScheduler):
         self._queue_stats = {}
         self._timing = dict(first_heartbeat_s=None, heartbeat_gap_s=None,
                             server_start_s=None, n_heartbeats=0)
+        self._ranks = dict(rank_pids=[], n_rank_pids_killed=0,
+                           group_start_s=[])
         self._n_corrupt_shard_lines = 0
         base = super().run()
         cfg = self.config
         fleet = dict(
             **self._queue_stats,
             **self._timing,
+            **self._ranks,
             n_workers=cfg.n_workers,
             lease_ttl=cfg.lease_ttl,
             retry_budget=cfg.retry_budget,
@@ -349,6 +398,14 @@ class FleetScheduler(SweepScheduler):
         active: dict[int, dict] = {}     # cell index -> live worker state
         out: dict[int, CellResult] = {}
         n_spawned = 0
+
+        def kill_active() -> None:
+            # at interpreter exit the standard library would wait for the
+            # attempts (they are not daemonic); end them instead
+            for w in active.values():
+                _kill(w["proc"])
+
+        atexit.register(kill_active)
         try:
             while True:
                 now = cfg.clock()
@@ -401,6 +458,7 @@ class FleetScheduler(SweepScheduler):
                     break
                 cfg.sleep(cfg.poll_s)
         finally:
+            atexit.unregister(kill_active)
             for w in active.values():    # interrupted: leave no orphans
                 _kill(w["proc"])
                 self._cleanup(w, failed=True)
@@ -417,7 +475,8 @@ class FleetScheduler(SweepScheduler):
         shard = shard_dir / f"{stem}.jsonl"
         hb = shard_dir / f"{stem}.hb"
         err = shard_dir / f"{stem}.jsonl.err"
-        for p in (shard, hb, err):       # stale residue of a killed run
+        ranks_log = shard_dir / f"{stem}.ranks"
+        for p in (shard, hb, err, ranks_log):   # stale residue of a killed run
             p.unlink(missing_ok=True)
         hb.touch()
         started = hb.stat().st_mtime
@@ -426,10 +485,10 @@ class FleetScheduler(SweepScheduler):
             args=(backend, self.spec.cases, design,
                   self.spec.cell_spec(cell, design).name, str(shard),
                   str(hb), self.config.faults, cell.index, task.attempts,
-                  self._epoch_window()),
-            daemon=True)
+                  self._epoch_window(), str(ranks_log)),
+            daemon=False)
         proc.start()
-        return dict(proc=proc, shard=shard, hb=hb, err=err,
+        return dict(proc=proc, shard=shard, hb=hb, err=err, ranks=ranks_log,
                     started=started, last_hb=started, first_hb=None)
 
     def _reap(self, entry, w, exitcode, sweep_id, snapshot):
@@ -470,9 +529,15 @@ class FleetScheduler(SweepScheduler):
         return res, None
 
     def _cleanup(self, w, failed: bool):
+        """After an attempt has ended: end the ranks it left, then remove
+        its files (unless ``keep_shards``)."""
+        logged, startups = ranks.read_rank_log(w["ranks"])
+        self._ranks["n_rank_pids_killed"] += _end_ranks(logged)
+        self._ranks["rank_pids"] += [pid for pid, _ in logged]
+        self._ranks["group_start_s"] += startups
         if self.config.keep_shards:
             return
-        for key in ("shard", "hb", "err"):
+        for key in ("shard", "hb", "err", "ranks"):
             w[key].unlink(missing_ok=True)
 
     # -- shared failure path -------------------------------------------------

@@ -190,18 +190,21 @@ def _on_local_shards(q, k, v, impl: str, kw: dict):
     alike and evenly, so each mesh dim shards batch (dim 0) or heads
     (dim 2) of all three, as k and v are placed (the decode cache, the
     large operand, stays where it is) or else as q is, where the sizes
-    divide; any other mesh dim is gathered, and each of its ranks
-    computes its rows' whole attention (gemma2-2b's 4 KV heads over a
-    16-wide ``model`` axis: the dry run's useful-FLOPs ratio shows it).
-    The flash wrapper's launches during the local calls also count in
-    ``flash_attention.launches_sharded``."""
-    from torch.distributed.tensor import Replicate, Shard
+    divide. A mesh dim along which q, or k and v, arrive as partial sums
+    shards heads where they divide, so that the redistribute is a
+    reduce-scatter onto heads and not an all-reduce. Any other mesh dim is
+    gathered, and each of its ranks computes its rows' whole attention
+    (gemma2-2b's 4 KV heads over a 16-wide ``model`` axis: the dry run's
+    useful-FLOPs ratio shows it). The flash wrapper's launches during the
+    local calls also count in ``flash_attention.launches_sharded``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh, places, split = q.device_mesh, [], {0: 1, 2: 1}
     for i, (pq, pk, pv) in enumerate(zip(q.placements, k.placements, v.placements)):
         target = Replicate()
-        for p in (pk if pk == pv else None, pq):
+        partial = isinstance(pq, Partial) or (isinstance(pk, Partial) and pk == pv)
+        for p in (pk if pk == pv else None, pq, Shard(2) if partial else None):
             if isinstance(p, Shard) and p.dim in split:
                 n = split[p.dim] * mesh.size(i)
                 if q.shape[p.dim] % n == 0 and k.shape[p.dim] % n == 0:

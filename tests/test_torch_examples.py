@@ -194,6 +194,20 @@ def test_quickstart_walkthrough(capsys):
     assert [r.verdict for r in res["rows"]] == ["A<B", "A<B"]
 
 
+def test_quickstart_batch_engine_prints_the_reference_s_lines(capsys):
+    """``--engine batch`` draws as the reference does: on the CPU every
+    printed line is the reference's, the window's and the barrier's means
+    and the comparison table included, but for the store fingerprint (the
+    factor sets differ between the packages)."""
+    _load("quickstart_torch").main(["--device", "cpu", "--engine", "batch"])
+    out = capsys.readouterr().out.splitlines()
+    ref = _reference("quickstart").splitlines()
+    assert len(out) == len(ref)
+    fp = re.compile(r"fingerprint \w+")
+    assert [fp.sub("", ln) for ln in out] == [fp.sub("", ln) for ln in ref]
+    assert any(ln.startswith("barrier local-max") for ln in out)
+
+
 def test_factor_impact_walkthrough(capsys):
     """``tuning`` ranked first and Holm-significant, ``dtype`` null (the
     walkthrough raises otherwise); 16 cells measured, then 16 resumed and

@@ -40,7 +40,7 @@ from repro.parallel import ShardingConfig as RefShardingConfig
 from repro.parallel import batch_specs as ref_batch_specs
 from repro.parallel import cache_specs as ref_cache_specs
 from repro.parallel import param_specs as ref_param_specs
-from repro_torch.configs import ARCHS, SHAPES, applicable_shapes, get_config
+from repro_torch.configs import ARCHS, SHAPES, applicable_shapes, get_config, get_smoke
 from repro_torch.convert import named_to_reference
 from repro_torch.launch.steps import abstract_cache, abstract_params, input_specs
 from repro_torch.parallel import (P, AbstractMesh, ShardingConfig, batch_specs, cache_specs,
@@ -202,10 +202,29 @@ _RANKS = textwrap.dedent(r'''
         res = {"n_dtensor": sum(isinstance(p, DTensor) for p in model.parameters()),
                "n_params": sum(1 for _ in plain.parameters())}
 
+        # the query heads of every local attention call (local_map calls
+        # attention_op back with each rank's shards)
+        from repro_torch.models import attention
+        original, heads = attention.attention_op, []
+
+        def op(q, k, v, **kw):
+            if not isinstance(q, DTensor):
+                heads[-1].append(q.shape[2])
+            return original(q, k, v, **kw)
+
+        def sharded(fn):
+            heads.append([])
+            attention.attention_op = op
+            try:
+                return fn()
+            finally:
+                attention.attention_op = original
+
         # prefill step: the whole sequence
         batch = {"tokens": toks}
         want = make_prefill_step(cfg)(plain, batch)
-        got = make_prefill_step(cfg)(model, distribute(batch, batch_specs(mesh, batch), mesh))
+        got = sharded(lambda: make_prefill_step(cfg)(
+            model, distribute(batch, batch_specs(mesh, batch), mesh)))
         res["prefill"] = rel(got, want)
 
         # decode: the 8 tokens one at a time, a cache distributed by its specs
@@ -219,9 +238,10 @@ _RANKS = textwrap.dedent(r'''
             tok = toks[:, i:i + 1]
             want, cache = decode_step(cfg, plain, cache, tok)
             dtok = distribute({"t": tok}, batch_specs(mesh, {"t": tok}), mesh)["t"]
-            got, dcache = decode_step(cfg, model, dcache, dtok)
+            got, dcache = sharded(lambda: decode_step(cfg, model, dcache, dtok))
             errs.append(rel(got, want))
         res["decode"] = errs
+        res["q_heads"] = heads
         key = "k" if "k" in first else "state"
         res["cache"] = rel(dcache["segments"][0][key], cache["segments"][0][key])
         return res
@@ -340,6 +360,18 @@ def test_sharded_prefill_and_decode_match_unsharded_on_gloo_ranks(gloo_ranks, ar
         assert max(res["decode"]) <= 1e-5, res
         assert res["cache"] <= 1e-5, res
         assert res["cache_placements"] == cache_placements
+
+
+def test_sharded_attention_runs_on_head_shards_on_gloo_ranks(gloo_ranks):
+    """Every layer's local attention call, in the prefill and in each
+    decode step, holds only this rank's query heads (4 heads over a
+    2-wide ``model`` axis): where q and k arrive as partial sums over
+    ``model``, they are reduce-scattered onto heads, not all-reduced."""
+    cfg = get_smoke("gemma2-2b")
+    for rank in gloo_ranks:
+        calls = rank["gemma2-2b"]["q_heads"]
+        assert len(calls) == 1 + 8, calls                      # prefill, 8 decode steps
+        assert all(c == [cfg.n_heads // 2] * cfg.n_layers for c in calls), calls
 
 
 @pytest.mark.parametrize("split,w_gate", [
