@@ -398,7 +398,8 @@ def trace_line(per_kernel, busy) -> str:
 class Spans:
     """CUDA events around each call of a wrapped function: the device time
     from the first operation a step enqueues to its last, idle gaps
-    included. Only this script wraps; the library carries no timers."""
+    included. Only this script wraps; the library's own spans
+    (``repro_torch.core.telemetry``) are on the host's clock."""
 
     def __init__(self):
         self.events: dict[str, list] = {}
@@ -645,22 +646,12 @@ def phase_main_path(torch) -> tuple[int, float]:
 
     from repro_torch import simengine
     from repro_torch.campaign import Campaign, CampaignSpec, TorchSimBackend
-    from repro_torch.campaign import backends
-    from repro_torch.core import ExperimentDesign, TestCase
+    from repro_torch.core import ExperimentDesign, TestCase, telemetry
     from repro_torch.kernels.sim_scan import sim_durations_scan
 
     p, epochs, nrep = 512, 30, 100_000
     cases = [TestCase(op, 4096) for op in ("allreduce", "bcast", "alltoall")]
     spans = Spans()
-    host: dict[str, list] = {}
-
-    def host_timed(name, fn):
-        def timed(*args, **kw):
-            t = time.perf_counter()
-            out = fn(*args, **kw)
-            host.setdefault(name, []).append(time.perf_counter() - t)
-            return out
-        return timed
 
     # the kernel's launches by shape, and its device span by row count
     shapes: collections.Counter = collections.Counter()
@@ -675,15 +666,11 @@ def phase_main_path(torch) -> tuple[int, float]:
             by_rows[R] = spans.wrap(f"sim_scan R={R}", kernel)
         return by_rows[R](eps, *args, **kw)
 
-    # (module, attribute, wrapper): device spans inside the engine, host
-    # time of each step the backend calls
+    # (module, attribute, wrapper): device spans inside the engine; the host
+    # time of each step comes from the program's own spans
     patches = [(simengine, name, spans.wrap(name, getattr(simengine, name)))
                for name in ("_sample", "_window")]
     patches.append((simengine, "sim_durations_scan", kernel_by_shape))
-    patches += [(backends, name, host_timed(name, getattr(backends, name)))
-                for name in ("run_windowed_epochs_torch", "run_windowed_torch")]
-    patches.append((backends.TorchSimBackend, "make_epoch",
-                    host_timed("make_epoch", backends.TorchSimBackend.make_epoch)))
     originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, fn in patches:
         setattr(obj, name, fn)
@@ -694,8 +681,9 @@ def phase_main_path(torch) -> tuple[int, float]:
         torch.cuda.reset_peak_memory_stats()
         sim_durations_scan.launches = 0
         t = time.perf_counter()
-        res = Campaign(spec, TorchSimBackend(p=p, seed0=0)).run()
-        torch.cuda.synchronize()
+        with telemetry.recording():
+            res = Campaign(spec, TorchSimBackend(p=p, seed0=0)).run()
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = sim_durations_scan.launches
         peak = torch.cuda.max_memory_allocated()
@@ -706,9 +694,10 @@ def phase_main_path(torch) -> tuple[int, float]:
     rows_ms = {R: spans.ms(f"sim_scan R={R}") for R in sorted(by_rows)}
     kernel_ms = sum(rows_ms.values())
     window_ms = spans.ms("_window")
-    sync_s = host.get("make_epoch", [])
-    fused_s = host.get("run_windowed_epochs_torch", [])
-    topup_s = host.get("run_windowed_torch", [])
+    host = telemetry.snapshot()["totals"]
+    none = dict(count=0, total_s=0.0)
+    # every per-epoch window of this fused campaign is a top-up
+    sync, fused, topup = (host.get(k, none) for k in ("sync", "engine.fused", "engine.window"))
 
     require(launches > 0, "main path launched sim_scan")
     require(len(res.records) == epochs * len(cases), "one record per case x epoch")
@@ -724,10 +713,12 @@ def phase_main_path(torch) -> tuple[int, float]:
             for c in cases}
     print(f"# [6 main path] p={p} epochs={epochs} nrep={nrep} hca fused "
           f"allreduce/bcast/alltoall@4096: wall {wall:.2f} s = host sync "
-          f"{sum(sync_s):.2f} s ({len(sync_s)} epochs) + fused engine calls "
-          f"{sum(fused_s):.2f} s ({len(fused_s)} calls) + per-epoch top-up calls "
-          f"{sum(topup_s):.2f} s ({len(topup_s)} calls) + rest "
-          f"{wall - sum(sync_s) - sum(fused_s) - sum(topup_s):.2f} s; device spans: sampling "
+          f"{sync['total_s']:.2f} s ({sync['count']} epochs) + fused engine calls "
+          f"{fused['total_s']:.2f} s ({fused['count']} calls) + per-epoch top-up calls "
+          f"{topup['total_s']:.2f} s ({topup['count']} calls) + rest "
+          f"{wall - sync['total_s'] - fused['total_s'] - topup['total_s']:.2f} s; "
+          f"read-back copies of all windows {host['engine.copy_out']['self_s']:.2f} s; "
+          "device spans: sampling "
           f"{sample_ms / 1e3:.3f} s (sim_scan kernel {kernel_ms / 1e3:.4f} s), "
           f"window {window_ms / 1e3:.3f} s; kernel share of device spans "
           f"{kernel_ms / (sample_ms + window_ms):.4f}, of wall "

@@ -33,6 +33,7 @@ from ..core.opexpr import parse_opexpr
 from ..core.runtime_meter import MeterConfig, TorchEpochContext
 from ..core.simnet import ClockParams, SimNet
 from ..core.sync import SYNC_CLASSES, make_sync
+from ..core.telemetry import count, span, spanned
 from ..core.window import ENGINES, resolve_engine, run_windowed
 from ..kernels.ops import IMPLS, make_benchmark_op
 from ..simengine import (resolve_device, run_windowed_epochs_torch,
@@ -115,11 +116,12 @@ class _TorchSimEpoch:
     def __init__(self, backend: "TorchSimBackend", epoch: int):
         self.backend = backend
         self.device = resolve_device(backend.device)
-        self.net = SimNet(
-            backend.p,
-            clocks=ClockParams(**backend.clock_kw) if backend.clock_kw
-            else None,
-            seed=backend.seed0 + 1000 * epoch)
+        with span("sync.net"):
+            self.net = SimNet(
+                backend.p,
+                clocks=ClockParams(**backend.clock_kw) if backend.clock_kw
+                else None,
+                seed=backend.seed0 + 1000 * epoch)
         sync_kw = _filter_sync_kw(backend.sync_name, backend.sync_kw)
         self.sync = make_sync(backend.sync_name,
                               **sync_kw).synchronize(self.net)
@@ -194,6 +196,7 @@ class TorchSimBackend:
                              "host only; pass device='cpu'")
         resolve_device(self.device)
 
+    @spanned("sync")
     def make_epoch(self, epoch: int) -> _TorchSimEpoch:
         if self.buffer_policy not in ("warm", "cold"):
             raise ValueError(f"TorchSimBackend: buffer_policy must be 'warm' "
@@ -219,6 +222,7 @@ class TorchSimBackend:
         return run_windowed(ctx.net, ctx.sync, op, msize, nrep, self.win_size,
                             device=ctx.device, engine=ctx.engine)
 
+    @spanned("topup")
     def _top_up(self, ctx: _TorchSimEpoch, op, msize: int, nrep: int,
                 runs: list) -> np.ndarray:
         """Top up window discards (at most 2 extra chunks) through the
@@ -229,8 +233,11 @@ class TorchSimBackend:
             missing = nrep - sum(r.valid_times.size for r in runs)
             if missing <= 0:
                 break
+            count("engine.windows.topup")
             runs.append(self._run(ctx, op, msize, missing))
         valid = np.concatenate([r.valid_times for r in runs])
+        count("records.valid_calls", valid.size)
+        count("records.empty", int(valid.size == 0))
         return valid if valid.size else np.concatenate(
             [r.times for r in runs])[:nrep]
 
@@ -274,6 +281,10 @@ class TorchSimBackend:
             return None
         if not work or all(not cases for cases in work.values()):
             return None
+        with span("campaign.fused", epochs=tuple(sorted(work))):
+            return self._measure_fused(work, design)
+
+    def _measure_fused(self, work: dict, design: ExperimentDesign) -> dict:
         ctxs = {e: self.make_epoch(e) for e in sorted(work)}
         nrep0 = design.nrep_min if design.adaptive else design.nrep
         pos = {e: 0 for e in sorted(work)}
@@ -296,14 +307,15 @@ class TorchSimBackend:
                 ops, msize, nrep0, self.win_size, device=ctxs[epochs[0]].device)
             for i, e in enumerate(epochs):
                 ctx, case = ctxs[e], work[e][pos[e]]
-                times = self._top_up(ctx, ops[i], msize, nrep0, [runs[i]])
-                if design.adaptive:
-                    times, meta = measure_adaptive(self.measure, ctx, case,
-                                                   design, initial=times)
-                else:
-                    meta = dict(nrep_used=int(times.size), converged=True)
-                meta.update(self.record_meta(ctx, case))
-                meta["fused"] = True
+                with span("record", epoch=e, op=op_name, msize=msize, fused=True):
+                    times = self._top_up(ctx, ops[i], msize, nrep0, [runs[i]])
+                    if design.adaptive:
+                        times, meta = measure_adaptive(self.measure, ctx, case,
+                                                       design, initial=times)
+                    else:
+                        meta = dict(nrep_used=int(times.size), converged=True)
+                    meta.update(self.record_meta(ctx, case))
+                    meta["fused"] = True
                 out[(op_name, msize, e)] = (np.asarray(times, np.float64),
                                             meta)
                 pos[e] += 1

@@ -19,12 +19,14 @@ records those epochs get in a full run.
 from __future__ import annotations
 
 import platform
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 
 from ..core.design import (NREP_SPENT, ExperimentDesign,
                            MeasurementRecord, ResultTable, TestCase,
                            analyze_records, case_orders, measure_case)
 from ..core.factors import FactorSet
+from ..core.telemetry import count, span
 from ..simengine import engine_stats
 from .backends import MeasurementBackend
 from .store import ResultStore, StoreSnapshot
@@ -36,10 +38,7 @@ def _dispatch_delta(before: dict, after: dict) -> dict | None:
     """This campaign's share of the engine's dispatch telemetry; None when
     the campaign never dispatched to the torch engine."""
     nd = after["n_dispatches"] - before["n_dispatches"]
-    if nd <= 0:
-        return None
-    return dict(n_dispatches=nd,
-                n_new_shapes=after["n_shapes"] - before["n_shapes"])
+    return dict(n_dispatches=nd) if nd > 0 else None
 
 
 @dataclass
@@ -98,6 +97,10 @@ class Campaign:
         ``measure_epochs`` receives only the window's work, so measuring
         epochs ``[0, 1)`` now and ``[1, 3)`` later appends exactly the
         records an uninterrupted full run would have."""
+        with span("campaign", campaign=self.spec.name):
+            return self._run(snapshot, on_record, epochs)
+
+    def _run(self, snapshot, on_record, epochs) -> CampaignResult:
         spec, backend, store = self.spec, self.backend, self.store
         design = spec.design
         cases = list(spec.cases) or backend.default_cases()
@@ -154,40 +157,46 @@ class Campaign:
             missing = [c for c in order
                        if (c.op, c.msize, epoch) not in done
                        and (c.op, c.msize, epoch) not in fused]
-            ctx = backend.make_epoch(epoch) if missing else None
-            for case in order:
-                key = (case.op, case.msize, epoch)
-                if key in done:
-                    records.append(done[key])
-                    n_resumed += 1
-                    continue
-                if key in fused:
-                    times, meta = fused.pop(key)
-                    NREP_SPENT.add(times.size)
-                else:
-                    times, meta = measure_case(backend.measure, ctx, case,
-                                               design)
-                # `host` is deliberately NOT part of the fingerprint
-                # (FactorSet excludes it), so a merged multi-host store
-                # needs it stamped on every record to stay auditable.
-                meta.setdefault("host", platform.node())
-                # Backend-provided provenance (engine, device). Fused
-                # records carry theirs already — their epoch context lives
-                # inside the backend's fused call, not here.
-                record_meta = getattr(backend, "record_meta", None)
-                if record_meta is not None and ctx is not None:
-                    for k, v in record_meta(ctx, case).items():
-                        meta.setdefault(k, v)
-                rec = MeasurementRecord(case=case, epoch=epoch, times=times,
-                                        meta=meta)
-                if store is not None:
-                    store.append_record(fingerprint, rec)
-                if on_record is not None:
-                    on_record(rec)
-                records.append(rec)
-                n_measured += 1
+            # a launch epoch measured here, not fused, is one span
+            with span("campaign.epoch", epoch=epoch) if missing else nullcontext():
+                ctx = backend.make_epoch(epoch) if missing else None
+                for case in order:
+                    key = (case.op, case.msize, epoch)
+                    if key in done:
+                        records.append(done[key])
+                        n_resumed += 1
+                        continue
+                    if key in fused:
+                        times, meta = fused.pop(key)
+                        NREP_SPENT.add(times.size)
+                    else:
+                        with span("record", epoch=epoch, op=case.op,
+                                  msize=case.msize, fused=False):
+                            times, meta = measure_case(backend.measure, ctx,
+                                                       case, design)
+                    # `host` is deliberately NOT part of the fingerprint
+                    # (FactorSet excludes it), so a merged multi-host store
+                    # needs it stamped on every record to stay auditable.
+                    meta.setdefault("host", platform.node())
+                    # Backend-provided provenance (engine, device). Fused
+                    # records carry theirs already — their epoch context lives
+                    # inside the backend's fused call, not here.
+                    record_meta = getattr(backend, "record_meta", None)
+                    if record_meta is not None and ctx is not None:
+                        for k, v in record_meta(ctx, case).items():
+                            meta.setdefault(k, v)
+                    rec = MeasurementRecord(case=case, epoch=epoch, times=times,
+                                            meta=meta)
+                    if store is not None:
+                        store.append_record(fingerprint, rec)
+                    if on_record is not None:
+                        on_record(rec)
+                    records.append(rec)
+                    count("records")
+                    n_measured += 1
 
-        table = analyze_records(records, design.outlier_filter)
+        with span("campaign.analyze"):
+            table = analyze_records(records, design.outlier_filter)
         meta = spec.meta()
         dispatch = _dispatch_delta(stats0, engine_stats())
         if dispatch is not None:

@@ -30,6 +30,7 @@ import math
 
 from ..clocks import LinearModel, linear_fit
 from ..simnet import SimNet
+from ..telemetry import span
 from .base import ClockSync, SyncResult, compute_rtt, skampi_pingpong_adjusted
 from .jk import collect_fitpoints_batch
 
@@ -115,39 +116,41 @@ class HCASync(ClockSync):
             i: {i: LinearModel(0.0, 0.0)} for i in range(p)
         }
 
-        # ---- SYNC_CLOCKS_POW2: hierarchical slope (and HCA2: intercept) ----
-        rnd = 1
-        while 2 ** rnd <= maxpower:
-            half = 2 ** (rnd - 1)
-            for ref_i in range(0, maxpower, 2 ** rnd):
-                cli_i = ref_i + half
-                ref_r, cli_r = ranks[ref_i], ranks[cli_i]
-                rtt = compute_rtt(net, ref_r, cli_r)
+        # the O(log p) tree: fitpoint sweeps, RTTs and model merges
+        with span("sync.hca.tree"):
+            # ---- SYNC_CLOCKS_POW2: hierarchical slope (and HCA2: intercept)
+            rnd = 1
+            while 2 ** rnd <= maxpower:
+                half = 2 ** (rnd - 1)
+                for ref_i in range(0, maxpower, 2 ** rnd):
+                    cli_i = ref_i + half
+                    ref_r, cli_r = ranks[ref_i], ranks[cli_i]
+                    rtt = compute_rtt(net, ref_r, cli_r)
+                    lm = learn_model_hca(
+                        net, ref_r, cli_r, rtt,
+                        self.n_fitpts, self.n_exchanges, initial_times,
+                    )
+                    if self.hierarchical_intercepts:
+                        lm = self._set_intercept(net, lm, cli_r, ref_r, initial_times)
+                    # Client ships its model table one level up (one message).
+                    net.transfer(cli_r, ref_r)
+                    for m, sub_lm in subtree[cli_i].items():
+                        subtree[ref_i][m] = LinearModel.merge(lm, sub_lm)
+                rnd += 1
+
+            # ---- SYNC_CLOCKS_REMAINING: non-power-of-two ranks, one round --
+            for j in range(p - maxpower):
+                q_i = maxpower + j
+                ref_i = j
+                q_r, ref_r = ranks[q_i], ranks[ref_i]
+                rtt = compute_rtt(net, ref_r, q_r)
                 lm = learn_model_hca(
-                    net, ref_r, cli_r, rtt,
-                    self.n_fitpts, self.n_exchanges, initial_times,
+                    net, ref_r, q_r, rtt, self.n_fitpts, self.n_exchanges, initial_times
                 )
                 if self.hierarchical_intercepts:
-                    lm = self._set_intercept(net, lm, cli_r, ref_r, initial_times)
-                # Client ships its model table one level up (one message).
-                net.transfer(cli_r, ref_r)
-                for m, sub_lm in subtree[cli_i].items():
-                    subtree[ref_i][m] = LinearModel.merge(lm, sub_lm)
-            rnd += 1
-
-        # ---- SYNC_CLOCKS_REMAINING: non-power-of-two ranks, one round ------
-        for j in range(p - maxpower):
-            q_i = maxpower + j
-            ref_i = j
-            q_r, ref_r = ranks[q_i], ranks[ref_i]
-            rtt = compute_rtt(net, ref_r, q_r)
-            lm = learn_model_hca(
-                net, ref_r, q_r, rtt, self.n_fitpts, self.n_exchanges, initial_times
-            )
-            if self.hierarchical_intercepts:
-                lm = self._set_intercept(net, lm, q_r, ref_r, initial_times)
-            net.transfer(q_r, ranks[0])  # gather on root (sub-communicator)
-            subtree[0][q_i] = LinearModel.merge(subtree[0][ref_i], lm)
+                    lm = self._set_intercept(net, lm, q_r, ref_r, initial_times)
+                net.transfer(q_r, ranks[0])  # gather on root (sub-communicator)
+                subtree[0][q_i] = LinearModel.merge(subtree[0][ref_i], lm)
 
         # ---- models now live on root; scatter (Alg. 2 line 5) --------------
         models = [LinearModel(0.0, 0.0) for _ in range(net.p)]
@@ -156,12 +159,13 @@ class HCASync(ClockSync):
 
         # ---- first approach: linear intercept re-anchoring (O(p)) ----------
         if not self.hierarchical_intercepts:
-            for i, r in enumerate(ranks):
-                if r == root:
-                    continue
-                models[r] = self._set_intercept(
-                    net, models[r], r, root, initial_times
-                )
+            with span("sync.hca.intercepts"):
+                for i, r in enumerate(ranks):
+                    if r == root:
+                        continue
+                    models[r] = self._set_intercept(
+                        net, models[r], r, root, initial_times
+                    )
 
         net.align(ranks)  # MPI_BARRIER of Alg. 2 line 7
         duration = net.max_elapsed_since(snap)

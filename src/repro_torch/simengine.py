@@ -43,6 +43,12 @@ only the O(nrep) times and flags come back to the host: a fused record is
 the per-epoch record, bit for bit, so how a campaign was scheduled (fused,
 per epoch, or across a fleet's retried attempts) never changes what it
 measured.
+
+Each step is a span of :mod:`repro_torch.core.telemetry` (the draws, the
+prefix sum's trip through the host, the wait for the device, the read-back
+copies, the drift paths' growth and uploads), and every read to the host
+is counted with its bytes; they record only while an operator or a
+profiler records.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .core.telemetry import DISPATCHES, count, dispatches, span, spanned
 from .core.window import START_LATE, TOOK_TOO_LONG, WindowRun
 from .kernels.sim_scan.kernel import sim_durations_scan
 
@@ -67,7 +74,6 @@ __all__ = [
     "scan_host_draws",
     "FusedWindowRun",
     "engine_stats",
-    "reset_engine_stats",
 ]
 
 _F64 = torch.float64
@@ -109,39 +115,34 @@ def _bucket(nrep: int) -> int:
     return n
 
 
-class _EngineStats:
-    """Process-global dispatch telemetry: every sample and window call is
-    counted, and the distinct (step, shape) keys are collected. Monotone,
-    so a snapshot-delta is a campaign's share."""
-
-    __slots__ = ("dispatches", "shape_keys")
-
-    def __init__(self) -> None:
-        self.dispatches = 0
-        self.shape_keys: set = set()
-
-    def count(self, key: tuple) -> None:
-        self.dispatches += 1
-        self.shape_keys.add(key)
-
-
-_STATS = _EngineStats()
-
 #: Per-net device mirrors of the drift paths (:class:`_DevicePaths`),
 #: freed with the net.
 _MIRRORS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def engine_stats() -> dict:
-    """Cumulative telemetry: ``n_dispatches`` (sample + window calls) and
-    ``n_shapes`` (distinct step x shape signatures among them)."""
-    return {"n_shapes": len(_STATS.shape_keys),
-            "n_dispatches": _STATS.dispatches}
+    """``n_dispatches``: sample and window calls over the process's life
+    (:func:`repro_torch.core.telemetry.dispatches`). Monotone, so the
+    difference of two readings is the share of what ran between them."""
+    return {"n_dispatches": dispatches()}
 
 
-def reset_engine_stats() -> None:
-    _STATS.dispatches = 0
-    _STATS.shape_keys.clear()
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """``x`` read back to the host as a numpy array, counted as one of the
+    engine's read-backs (``engine.readbacks``, ``engine.d2h_bytes``)."""
+    out = x.cpu().numpy()
+    count("engine.readbacks")
+    count("engine.d2h_bytes", out.nbytes)
+    return out
+
+
+@spanned("engine.wait")
+def _wait(device: torch.device) -> None:
+    """Wait for the work queued on ``device``'s current stream, so that
+    the read-backs after it time copies alone. The first read-back would
+    wait as long; nothing on the device changes."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 def _terms(op, p: int, msize: int):
@@ -190,16 +191,17 @@ def _sample(seeds, j, subs, nets, tp, tm, n, nrep, device) -> torch.Tensor:
         noise[0, e].normal_(0.0, s0.noise_sigma, generator=gen)
         for k in (1, 2, 3):
             noise[k, e].uniform_(generator=gen)
-    _STATS.count(("sample", len(seeds), n))
+    count(DISPATCHES)
     t, s = sim_durations_scan(
         noise[0], noise[1], noise[2], noise[3], coeff=s0.autocorr,
         state=state, t0=t0, tail_prob=s0.tail_prob, tail_shift=s0.tail_shift,
         spike_prob=s0.spike_prob, spike_scale=s0.spike_scale)
-    for sub, last in zip(subs, s[:, nrep - 1].tolist()):
+    for sub, last in zip(subs, _to_host(s[:, nrep - 1]).tolist()):
         sub._ar_state = last
     return t
 
 
+@spanned("engine.draw")
 def _draw(net, op, msize, p, nrep, device):
     """One epoch's draws for ``nrep`` calls, in the host order of the
     reference's engines: the window seed from ``net.rng``, then each
@@ -279,6 +281,7 @@ class _DevicePaths:
     def stale(self) -> bool:
         return any(pth.t.size != n for pth, n in zip(self.paths, self.sent))
 
+    @spanned("drift.upload")
     def upload(self) -> None:
         lens = [pth.t.size for pth in self.paths]
         need = max(lens)
@@ -330,6 +333,7 @@ class _DevicePaths:
         return out.T
 
 
+@spanned("drift.deadlines")
 def grow_paths_for_deadlines(clocks, sync, ranks, targets_last) -> None:
     """Grow each walking clock's drift path on the host for the deadline
     inversion of the window targets up to ``targets_last``, as the
@@ -351,6 +355,7 @@ def grow_paths_for_deadlines(clocks, sync, ranks, targets_last) -> None:
         list(pool.map(grow, zip(clocks, ranks)))
 
 
+@spanned("drift.reads")
 def grow_paths_for_reads(clocks, start_max, end_max) -> None:
     """Grow each drift path for the forward reads of the start stamps, then
     of the end stamps (per-rank maxima), as the reference's ``read`` of
@@ -360,6 +365,7 @@ def grow_paths_for_reads(clocks, start_max, end_max) -> None:
         clk._path.ensure(b)
 
 
+@spanned("engine.cumsum")
 def _exclusive_cumsum(e: torch.Tensor) -> torch.Tensor:
     """``[0, e0, e0 + e1, ...]`` (length ``len(e)``), summed in order on
     the host. CUDA's one-dimensional ``torch.cumsum`` (CUB's decoupled
@@ -368,7 +374,7 @@ def _exclusive_cumsum(e: torch.Tensor) -> torch.Tensor:
     per-epoch engine in about one epoch in twelve (1-ulp differences in a
     few dozen of 20 000 times). numpy's sequential sum is the same on
     every run, on either device's tensors."""
-    host = np.concatenate([[0.0], np.cumsum(e[:-1].cpu().numpy())])
+    host = np.concatenate([[0.0], np.cumsum(_to_host(e[:-1]))])
     return torch.from_numpy(host).to(e.device)
 
 
@@ -415,8 +421,8 @@ def _window(durations, gen, t0, off, skew, scale, slope, intercept, init_t,
         sg = to_global(start)
         eg = to_global(end)
     else:
-        peaks = torch.stack([start[:nrep].amax(dim=0),
-                             end[:nrep].amax(dim=0)]).cpu().numpy()
+        peaks = _to_host(torch.stack([start[:nrep].amax(dim=0),
+                                      end[:nrep].amax(dim=0)]))
         grow_paths_for_reads(paths.clocks, peaks[0], peaks[1])
         if paths.stale():       # the reads outran the deadlines' growth
             paths.upload()
@@ -428,6 +434,7 @@ def _window(durations, gen, t0, off, skew, scale, slope, intercept, init_t,
     return times, errors, sg, eg, start, end
 
 
+@spanned("engine.window")
 def run_windowed_torch(net, sync, op, msize, nrep, win_size, ranks=None,
                        device="cuda") -> WindowRun:
     """Measure ``nrep`` calls of ``op`` under window-based synchronization
@@ -463,11 +470,14 @@ def run_windowed_torch(net, sync, op, msize, nrep, win_size, ranks=None,
         if paths.stale():
             paths.upload()
         walk = (paths, nrep)
-    _STATS.count(("window", durations.shape[0], p))
+    count(DISPATCHES)
+    count("engine.windows")
     out = _window(durations, gen, rk["t0"], rk["off"], rk["skew"], rk["scale"],
                   rk["slope"], rk["intercept"], rk["init_t"], op.rank_imbalance,
                   start_time, win_size, walk)
-    times, errors, sg, eg, st, et = (x[:nrep].cpu().numpy() for x in out)
+    _wait(dev)
+    with span("engine.copy_out"):
+        times, errors, sg, eg, st, et = (_to_host(x[:nrep]) for x in out)
     net.t[ranks] = et[nrep - 1]
     return WindowRun(times=times, errors=errors, start_global_est=sg,
                      end_global_est=eg, start_true=st, end_true=et)
@@ -537,6 +547,7 @@ class FusedWindowRun:
         return self.times[self.errors == 0]
 
 
+@spanned("engine.fused")
 def run_windowed_epochs_torch(nets, syncs, ops, msize, nrep, win_size,
                               ranks=None, device="cuda") -> "list[FusedWindowRun]":
     """Measure one case across launch epochs: ``nets[e] / syncs[e] /
@@ -573,22 +584,26 @@ def run_windowed_epochs_torch(nets, syncs, ops, msize, nrep, win_size,
     nterms = len(term_lists[0])
 
     durations = None
-    for j in range(nterms):
-        subs = [terms[j][0] for terms in term_lists]
-        tp, tm = term_lists[0][j][1], term_lists[0][j][2]
-        d = _sample(seeds, j, subs, nets, tp, tm, n, nrep, dev)
-        durations = d if durations is None else durations + d
+    with span("engine.draw"):
+        for j in range(nterms):
+            subs = [terms[j][0] for terms in term_lists]
+            tp, tm = term_lists[0][j][1], term_lists[0][j][2]
+            d = _sample(seeds, j, subs, nets, tp, tm, n, nrep, dev)
+            durations = d if durations is None else durations + d
 
     rk = _rank_arrays(nets, syncs, ranks, dev)
     runs = []
     for e in range(E):
-        _STATS.count(("window_fused", n, p))
+        count(DISPATCHES)
+        count("engine.windows")
         times, errors, _, _, _, end = _window(
             durations[e], _generator(dev, seeds[e], nterms), rk["t0"][e],
             rk["off"][e], rk["skew"][e], rk["scale"][e], rk["slope"][e],
             rk["intercept"][e], rk["init_t"][e], ops[e].rank_imbalance,
             start_times[e], win_size)
-        nets[e].t[ranks] = end[nrep - 1].cpu().numpy()
-        runs.append(FusedWindowRun(times=times[:nrep].cpu().numpy(),
-                                   errors=errors[:nrep].cpu().numpy()))
+        _wait(dev)
+        with span("engine.copy_out"):
+            nets[e].t[ranks] = _to_host(end[nrep - 1])
+            runs.append(FusedWindowRun(times=_to_host(times[:nrep]),
+                                       errors=_to_host(errors[:nrep])))
     return runs
