@@ -2,7 +2,8 @@
 
 The program marks where its work happens: :func:`span` bounds a step
 (``"sync"``, ``"topup"``, ``"engine.window"``, ...) and :func:`count` adds
-to a named counter (``"engine.readbacks"``, ``"records.valid_calls"``, ...).
+to a named counter (``"engine.readbacks"``, ``"engine.grids.read"``,
+``"records.valid_calls"``, ...).
 They record only while recording is on, which is inside :func:`recording`
 and whenever a ``torch.profiler`` session records. Otherwise a call costs
 one check and records nothing. The one exception is

@@ -24,7 +24,10 @@ JAX's threefry, so the port is a different draw of the same process as the
 reference, never bit-identical to it.
 
 :func:`run_windowed_torch` is the per-epoch engine: float64 throughout,
-and a full :class:`~repro_torch.core.window.WindowRun`. It also runs
+and a full :class:`~repro_torch.core.window.WindowRun`, of which it reads
+back the ``(nrep,)`` times and flags and the last row of the true end
+stamps (for ``net.t``); the four ``(nrep, p)`` grids stay on the device
+until a caller first reads one. It also runs
 random-walk clocks (the reference's ``batch_rw`` engine): each walk is
 grown on the host as a :class:`~repro_torch.core.clocks.DriftPath`, with
 the reference's sequence of ``ensure`` calls so the node values are the
@@ -434,6 +437,33 @@ def _window(durations, gen, t0, off, skew, scale, slope, intercept, init_t,
     return times, errors, sg, eg, start, end
 
 
+_GRIDS = ("start_global_est", "end_global_est", "start_true", "end_true")
+
+
+class _DeferredWindowRun(WindowRun):
+    """A :class:`WindowRun` whose four ``(nrep, p)`` grids stay on the
+    device until a caller first reads one. The first read of a grid copies
+    it to the host through :func:`_to_host` (counted as
+    ``engine.grids.read`` besides), keeps the array and lets the device
+    tensor go; later reads return the array. The grids are tensors that
+    ``_window`` allocated for this window alone, so no later window
+    changes what a late read returns."""
+
+    def __init__(self, times, errors, grids):
+        self.times, self.errors = times, errors
+        self._on_device = dict(zip(_GRIDS, grids))
+
+    def __getattr__(self, name):
+        # reached only for attributes not set yet: a grid still on the device
+        on_device = self.__dict__.get("_on_device", {})
+        if name not in on_device:
+            raise AttributeError(name)
+        grid = _to_host(on_device.pop(name))
+        count("engine.grids.read")
+        setattr(self, name, grid)
+        return grid
+
+
 @spanned("engine.window")
 def run_windowed_torch(net, sync, op, msize, nrep, win_size, ranks=None,
                        device="cuda") -> WindowRun:
@@ -444,7 +474,14 @@ def run_windowed_torch(net, sync, op, msize, nrep, win_size, ranks=None,
     Random-walk clocks follow the reference's ``batch_rw`` engine: every
     rank's drift path (node spacing ``win_size``) is activated before the
     first clock read, then the start time, window seed and term biases are
-    drawn, and the paths grow on the host in the reference's order."""
+    drawn, and the paths grow on the host in the reference's order.
+
+    Read back at once: the times, the flags and ``net.t``'s new row. The
+    returned run's four ``(nrep, p)`` grids (``start_global_est``,
+    ``end_global_est``, ``start_true``, ``end_true``) stay on ``device``
+    and are copied to the host on a caller's first read of each, so a
+    caller that reads times and flags alone, as every campaign does, never
+    copies them."""
     dev = resolve_device(device)
     ranks = list(range(net.p)) if ranks is None else list(ranks)
     p = len(ranks)
@@ -477,10 +514,9 @@ def run_windowed_torch(net, sync, op, msize, nrep, win_size, ranks=None,
                   start_time, win_size, walk)
     _wait(dev)
     with span("engine.copy_out"):
-        times, errors, sg, eg, st, et = (_to_host(x[:nrep]) for x in out)
-    net.t[ranks] = et[nrep - 1]
-    return WindowRun(times=times, errors=errors, start_global_est=sg,
-                     end_global_est=eg, start_true=st, end_true=et)
+        times, errors = _to_host(out[0][:nrep]), _to_host(out[1][:nrep])
+        net.t[ranks] = _to_host(out[5][nrep - 1])
+    return _DeferredWindowRun(times, errors, [x[:nrep] for x in out[2:]])
 
 
 def sample_durations_torch(net, op, msize, nrep, ranks=None, device="cuda"):
@@ -536,8 +572,11 @@ def scan_host_draws(op, rng, nrep, t0, device="cuda"):
 
 @dataclass
 class FusedWindowRun:
-    """O(nrep) outputs of one fused epoch: the ``(nrep, p)`` grids of
-    :class:`WindowRun` are not materialized."""
+    """O(nrep) outputs of one fused epoch: the times and flags, read back
+    with the last row of the true end stamps (for ``net.t``). The ``(nrep,
+    p)`` grids of :class:`WindowRun` are dropped on the device, never read
+    back; :func:`run_windowed_torch` keeps them there for a caller that
+    reads one."""
 
     times: np.ndarray
     errors: np.ndarray

@@ -155,6 +155,30 @@ def test_composite_chunking_and_ar_state():
                zip(states, [term._ar_state for term, _, _ in op.terms]))
 
 
+@pytest.mark.parametrize("rw_sigma", [0.0, 1e-7], ids=["affine", "walking"])
+def test_grids_read_after_the_next_window_are_unchanged(rw_sigma):
+    """A window's grids stay on the device until read: read after a second
+    window has run on the same net, they equal those of a twin that read
+    them as soon as its first window returned, bit for bit, and so do the
+    second windows and the nets."""
+    net, sync = _synced(13, p=8, rw_sigma=rw_sigma)
+    late = (net, sync, make_op("allreduce"))
+    now = copy.deepcopy(late)
+    grids = ("start_global_est", "end_global_est", "start_true", "end_true")
+    n1 = run_windowed_torch(*now, 512, 300, 400e-6, device=CPU)
+    eager = {k: getattr(n1, k).copy() for k in grids}
+    n2 = run_windowed_torch(*now, 512, 280, 400e-6, device=CPU)
+    l1 = run_windowed_torch(*late, 512, 300, 400e-6, device=CPU)
+    l2 = run_windowed_torch(*late, 512, 280, 400e-6, device=CPU)
+    for k in grids:
+        assert np.array_equal(getattr(l1, k), eager[k]), k
+        assert np.array_equal(getattr(l2, k), getattr(n2, k)), k
+    for a, b in ((l1, n1), (l2, n2)):
+        assert np.array_equal(a.times, b.times) and np.array_equal(a.errors, b.errors)
+    assert np.array_equal(late[0].t, now[0].t)
+    assert l2.start_true.min() > l1.end_true.max() - 1e-9
+
+
 # ---------------------------------------------------------------------------
 # Random-walk clocks against the reference's batch_rw engine
 # ---------------------------------------------------------------------------

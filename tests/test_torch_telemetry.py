@@ -2,7 +2,8 @@
 CPU: the span tree of a fused HCA campaign and of a walking-clock campaign
 (p 8, HCA 20 x 5), the counters against counts made apart from them,
 recording off, records unchanged by recording, the ranges in a
-``torch.profiler`` trace, and a fresh store for each recording."""
+``torch.profiler`` trace, a fresh store for each recording, and a
+per-epoch window's grids read back only on a caller's first read."""
 
 import json
 import threading
@@ -141,20 +142,87 @@ def _fresh(walking):
 
 @pytest.mark.parametrize("walking", [False, True], ids=["affine", "walking"])
 def test_read_back_bytes_are_what_the_engine_returned(walking):
-    """``engine.d2h_bytes`` is the bytes of the six arrays a window
-    returns, plus its carry, its prefix sum's trip and, on walking clocks,
-    the per-rank peaks; ``engine.readbacks`` counts each read once."""
+    """A window whose grids no one touches reads back its times, its flags
+    and one ``(p,)`` row for ``net.t``, plus its carry, its prefix sum's
+    trip and, on walking clocks, the per-rank peaks; ``engine.readbacks``
+    counts each read once, and no grid is read."""
     net, sync, op = _fresh(walking)
     nrep, p, n = NREP, 8, simengine._bucket(NREP)
     with telemetry.recording():
         run = simengine.run_windowed_torch(net, sync, op, 512, nrep, 400e-6, device="cpu")
     c = telemetry.snapshot()["counters"]
-    returned = sum(a.nbytes for a in (run.times, run.errors, run.start_global_est,
-                                      run.end_global_est, run.start_true, run.end_true))
+    returned = run.times.nbytes + run.errors.nbytes + p * 8
     inner = 8 + 8 * (n - 1) + (2 * p * 8 if walking else 0)
     assert c["engine.d2h_bytes"] == returned + inner
-    assert c["engine.readbacks"] == 6 + 2 + walking
+    assert c["engine.readbacks"] == 3 + 2 + walking
+    assert c.get("engine.grids.read", 0) == 0
     assert c["engine.windows"] == 1 and c["engine.dispatches"] == 2
+
+
+@pytest.mark.parametrize("walking", [False, True], ids=["affine", "walking"])
+def test_a_grid_is_read_back_once_on_first_access(walking, monkeypatch):
+    """Each of the four grids is copied on its first read, one read-back of
+    ``nrep * p * 8`` bytes and one ``engine.grids.read`` apiece, to the
+    values an eager copy of the same ``_window`` outputs holds, bit for
+    bit; a second read copies nothing."""
+    window, outs = simengine._window, []
+
+    def keep(*args, **kw):
+        outs.append(window(*args, **kw))
+        return outs[-1]
+
+    monkeypatch.setattr(simengine, "_window", keep)
+    net, sync, op = _fresh(walking)
+    nrep, p = NREP, 8
+    run = simengine.run_windowed_torch(net, sync, op, 512, nrep, 400e-6, device="cpu")
+    eager = [simengine._to_host(x[:nrep]).copy() for x in outs[0][2:]]
+    with telemetry.recording():
+        for name, want in zip(simengine._GRIDS, eager):
+            before = dict(telemetry.snapshot()["counters"])
+            got = getattr(run, name)
+            c = telemetry.snapshot()["counters"]
+            assert c["engine.readbacks"] - before.get("engine.readbacks", 0) == 1
+            assert c["engine.d2h_bytes"] - before.get("engine.d2h_bytes", 0) == nrep * p * 8
+            assert c["engine.grids.read"] - before.get("engine.grids.read", 0) == 1
+            assert got.shape == (nrep, p) and got.dtype == want.dtype
+            assert np.array_equal(got, want)
+            assert getattr(run, name) is got
+            assert telemetry.snapshot()["counters"] == c
+    assert telemetry.snapshot()["counters"]["engine.grids.read"] == 4
+    assert run.__dict__["_on_device"] == {}      # every device tensor let go
+
+
+@pytest.mark.parametrize("walking", [False, True], ids=["fused-hca", "walking"])
+def test_a_campaign_reads_no_grid(walking, monkeypatch):
+    """A campaign whose 30 us window discards calls, so that every record
+    tops up, reads no grid back; reading every grid of every window as it
+    returns, as the engine once did, changes none of its records."""
+    with telemetry.recording():
+        lazy = _campaign(walking, epochs=2, win_size=30e-6)
+    c = telemetry.snapshot()["counters"]
+    assert c["engine.windows.topup"] == 8 and c.get("engine.grids.read", 0) == 0
+    assert 0 < c["records.valid_calls"] < 4 * NREP
+
+    from repro_torch.campaign import backends
+    rwt = backends.run_windowed_torch
+
+    def eager_rwt(*args, **kw):
+        run = rwt(*args, **kw)
+        for name in simengine._GRIDS:
+            getattr(run, name)
+        return run
+
+    monkeypatch.setattr(backends, "run_windowed_torch", eager_rwt)
+    with telemetry.recording():
+        eager = _campaign(walking, epochs=2, win_size=30e-6)
+    c = telemetry.snapshot()["counters"]
+    fused = 0 if walking else len(eager.records)     # a fused first window a record
+    assert c["engine.grids.read"] == 4 * (c["engine.windows"] - fused) > 0
+    assert len(lazy.records) == len(eager.records)
+    for a, b in zip(lazy.records, eager.records):
+        assert (a.case, a.epoch) == (b.case, b.epoch)
+        assert a.times.dtype == b.times.dtype and np.array_equal(a.times, b.times)
+        assert a.meta == b.meta
 
 
 def test_fused_read_back_bytes_are_what_the_engine_returned():
