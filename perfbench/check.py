@@ -20,6 +20,8 @@ Numbers compared (each against the configuration's limit):
   reference's (a size off the top-up rule, missing, extra or out of
   order) and a record of another length are answers that do not agree
   at all: each makes the gap infinite. Their counts are reported beside.
+  A run that checked no epoch compared nothing, which makes the gap
+  infinite too.
 """
 
 from __future__ import annotations
@@ -77,11 +79,11 @@ def check(cfg: dict, captures: dict, device) -> dict:
                epochs_checked=0, windows_checked=0, calls_checked=0)
     for (plan, epoch), cap in captures.items():
         check_epoch(cfg, plan, epoch, cap, device, out)
-    if out["flag_rows"] or out["unpaired"]:
+    if out["flag_rows"] or out["unpaired"] or not out["epochs_checked"]:
         out["time_gap"] = float("inf")
     return out
 
 
-def verdict(numbers: dict, limits: dict) -> bool:
-    return numbers["epochs_checked"] > 0 and all(
-        numbers[k] <= limits[k] for k in NUMBERS)
+def verdict(numbers: dict, limits: dict, names=NUMBERS) -> bool:
+    """Every number in ``names`` within its limit (a NaN never is)."""
+    return all(numbers[k] <= limits[k] for k in names)

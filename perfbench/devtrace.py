@@ -1,12 +1,13 @@
 """The device trace of a ``--trace 1`` run, and its reduction.
 
 ``torch.profiler`` records the window's device operations (kernels,
-copies, sets) and the harness's own host annotations
-(``perfbench::<layer>``, from the wrappers around the calls into each
-layer). The reduction gives the seconds in which any device operation ran
-(their union within the window), the device time of each kernel, and the
-idle gaps, each charged to the innermost annotation the host was in at the
-gap's middle.
+copies, sets), the harness's own host annotations (``perfbench::<layer>``,
+from the wrappers around the calls into each layer) and the program's spans
+(``repro_torch::<name>``, which it records while a profiler records). The
+reduction gives the seconds in which any device operation ran (their union
+within the window), the device time of each kernel, and the idle time,
+each idle gap split over the innermost annotation or span the host was in
+along it (named without its prefix).
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ import tempfile
 from dataclasses import dataclass, field
 
 PREFIX = "perfbench::"
+#: Prefixes of the host ranges that idle time is charged to: the harness's
+#: annotations and the program's spans.
+HOST_PREFIXES = (PREFIX, "repro_torch::")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -28,7 +32,7 @@ class TraceData:
     busy_s: float
     device_s: dict = field(default_factory=dict)      # name -> seconds
     device_n: dict = field(default_factory=dict)      # name -> count
-    idle_s: dict = field(default_factory=dict)        # host layer -> idle seconds
+    idle_s: dict = field(default_factory=dict)        # host range -> idle seconds
 
 
 class Tracer:
@@ -103,9 +107,12 @@ def reduce(events) -> TraceData | None:
         a, d = float(ev["ts"]), float(ev["dur"])
         if ev.get("cat") in DEVICE_CATS:
             dev.append((a, a + d, ev.get("name", "?")))
-        elif ev.get("cat") == "user_annotation" and ev.get("name", "").startswith(PREFIX):
-            notes.append((a, a + d, ev["name"][len(PREFIX):]))
-    windows = [(a, b) for a, b, n in notes if n == "window"]
+        elif ev.get("cat") == "user_annotation":
+            name = ev.get("name", "")
+            for prefix in HOST_PREFIXES:
+                if name.startswith(prefix):
+                    notes.append((a, a + d, prefix, name[len(prefix):]))
+    windows = [(a, b) for a, b, prefix, n in notes if prefix == PREFIX and n == "window"]
     if not windows:
         return None
     w0, w1 = windows[0]
@@ -115,13 +122,15 @@ def reduce(events) -> TraceData | None:
     for a, b, n in inside:
         out.device_s[n] = out.device_s.get(n, 0.0) + (b - a) / 1e6
         out.device_n[n] = out.device_n.get(n, 0) + 1
-    segs = _innermost([x for x in notes if w0 <= x[0] and x[1] <= w1])
+    segs = _innermost([(a, b, n) for a, b, _, n in notes if w0 <= a and b <= w1])
     starts = [t for t, _ in segs]
     edges = [w0] + [x for ab in busy for x in ab] + [w1]
     for a, b in zip(edges[::2], edges[1::2]):
-        if b <= a:
-            continue
-        i = bisect.bisect_right(starts, 0.5 * (a + b)) - 1
-        label = (segs[i][1] if i >= 0 else None) or "window"
-        out.idle_s[label] = out.idle_s.get(label, 0.0) + (b - a) / 1e6
+        i = bisect.bisect_right(starts, a) - 1
+        while a < b:
+            end = min(b, starts[i + 1]) if i + 1 < len(starts) else b
+            if end > a:
+                label = (segs[i][1] if i >= 0 else None) or "window"
+                out.idle_s[label] = out.idle_s.get(label, 0.0) + (end - a) / 1e6
+            a, i = end, i + 1
     return out

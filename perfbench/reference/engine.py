@@ -19,13 +19,31 @@ here imports the program.
 
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import torch
 
-from .cluster import Cluster, derive_stream, hca
+from .cluster import Cluster, derive_stream
 
 START_LATE = 1
 TOOK_TOO_LONG = 2
+
+
+def sync_of(name: str):
+    """The reference's clock sync called ``name``: the function
+    ``sync(cl, cfg, dtype=np.float64)`` of ``perfbench/reference/sync_<name>.py``,
+    which synchronizes cluster ``cl`` and returns a
+    :class:`~perfbench.reference.cluster.Sync`. Raises ``ValueError`` where
+    there is no such file."""
+    module = f"{__package__}.sync_{name}"
+    if str(name).isidentifier():
+        try:
+            return importlib.import_module(module).sync
+        except ModuleNotFoundError as e:
+            if e.name != module:
+                raise
+    raise ValueError(f"the reference has no sync {name!r}: no perfbench/reference/sync_{name}.py")
 
 
 def bucket(nrep: int) -> int:
@@ -83,15 +101,15 @@ def ar1(eps: np.ndarray, coeff, state) -> np.ndarray:
 
 
 class Epoch:
-    """A fresh cluster (seed ``seed0 + 1000 * epoch``), its HCA sync, and
-    the collectives' state; :meth:`window` measures like the program's
-    per-epoch engine."""
+    """A fresh cluster (seed ``seed0 + 1000 * epoch``), its clock sync (the
+    configuration's ``sync``, :func:`sync_of`), and the collectives' state;
+    :meth:`window` measures like the program's per-epoch engine."""
 
     def __init__(self, cfg: dict, seed0: int, epoch: int, device, dtype=torch.float64):
         self.cfg, self.device, self.dtype = cfg, torch.device(device), dtype
         self.cl = Cluster(cfg["p"], cfg["net"], cfg["clocks"], seed=seed0 + 1000 * epoch)
-        self.sync = hca(self.cl, cfg["n_fitpts"], cfg["n_exchanges"],
-                        dtype=np.float64 if dtype == torch.float64 else np.float32)
+        self.sync = sync_of(cfg["sync"])(
+            self.cl, cfg, dtype=np.float64 if dtype == torch.float64 else np.float32)
         self.win = cfg["win_size_us"] * 1e-6
         self.walking = cfg["clocks"]["rw_sigma"] > 0.0
         self.ops: dict[str, Op] = {}

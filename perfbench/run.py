@@ -4,16 +4,47 @@
 
 from the root of a checkout. The cell (``BENCHMARK.json``'s ``workloads``)
 names a configuration (``perfbench/configs/<name>.json``) and a traffic mix
-(``perfbench/traffic/<name>.json``), which ``perfbench/systems/sim_campaign.py``
-runs as campaigns of the program; each metric is read by
+(``perfbench/traffic/<name>.json``); each metric is read by
 ``perfbench/metrics/<name>.py``. With ``--trace 0`` the line carries the
 cell's end-to-end metrics, with ``--trace 1`` its per-layer metrics, read
 under the profiler. The last line on standard output is one JSON object;
 the numbers the correctness check compared, each beside its limit, end
 standard error. A run exits non-zero, with no result line, where the cell
 asks for more CUDA devices than there are, where the program cannot be
-imported, or where the JAX stack, the JAX package or its benchmark is
-loaded once the window has closed, whenever it was loaded.
+imported, where the configuration names no system module there is, or a number
+its check compares without a limit, or where the JAX stack, the JAX
+package or its benchmark is loaded once the check and the result's summary
+are done, whenever it was loaded.
+
+The configuration's ``system`` names the module that runs the cell,
+``perfbench/systems/<system>.py`` (``sim_campaign`` where the key is
+absent), so a cell of a new kind arrives as files. A system module
+exports ``NUMBERS``, the names its check compares (each needs an entry in
+the configuration's ``limits``), and ``System(cfg, traffic, seed, device,
+tracer)`` with:
+
+* ``setup()``: builds and warms every shape of the cell; returns the
+  seconds of each step;
+* ``run(seconds)``: the measured window; returns a dict that holds at
+  least ``due`` and ``records`` (the operations asked for and delivered),
+  ``wall_s`` and ``valid`` (read by ``valid_meas_per_s``) and whatever
+  the cell's metric readers read. It may hold ``memory_peak_bytes``, the
+  peak on the fullest card as the module measured it; without it the
+  harness reads its own process's peak. The harness adds ``setup_s``,
+  ``trace`` and, after the check, ``check_s`` and ``setup_parts``;
+* ``check()``: once the window has closed, the numbers compared against
+  the plain reference, a dict holding every name in ``NUMBERS``;
+* ``summary(run, numbers)``: the result line's ``run`` object;
+* ``tiny(cfg, traffic)`` (static): the cell cut to a size the CPU tests
+  run in seconds, as new ``(cfg, traffic)``.
+
+``correct`` is true where every number in ``NUMBERS`` is within its limit.
+The harness checks the cell's ``chips`` against the device count. A module
+that starts rank processes owns them: it starts them in ``setup`` or
+``run`` and has ended and joined every one before ``check`` returns. The
+harness's own peak and profiler see its own process only: such a module
+reports the ranks' peak as ``run["memory_peak_bytes"]``, and no
+``device_trace`` metric may list its cell until it merges the ranks' traces.
 """
 
 from __future__ import annotations
@@ -23,6 +54,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -35,6 +67,8 @@ BENCH = ROOT / "perfbench"
 #: Top-level module names the port's benchmark must never load: the JAX
 #: stack, the JAX package this repository ports, and its benchmark folder.
 BLOCKED = ("jax", "jaxlib", "flax", "repro", "benchmarks")
+#: The system module of a configuration without a ``system`` key.
+DEFAULT_SYSTEM = "sim_campaign"
 
 
 def fail(msg: str, code: int = 2):
@@ -73,6 +107,15 @@ def cell(bench: dict, name: str) -> tuple[dict, dict, dict, list]:
     return w, cfg, traffic, metrics
 
 
+def system_module(cfg: dict):
+    """The module a configuration's ``system`` names: ``perfbench/systems/<system>.py``."""
+    name = cfg.get("system", DEFAULT_SYSTEM)
+    if not (isinstance(name, str) and name.isidentifier()
+            and (BENCH / "systems" / f"{name}.py").is_file()):
+        fail(f"no system {name!r}: perfbench/systems/<system>.py not found")
+    return importlib.import_module(f"perfbench.systems.{name}")
+
+
 def blocked_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in sys.modules} & set(BLOCKED))
 
@@ -97,12 +140,15 @@ def finite(x):
 
 
 def execute(w: dict, cfg: dict, traffic: dict, metrics: dict, seed: int, seconds: float,
-            trace: bool, device: str = "cuda", tolerate: frozenset = frozenset()) -> dict:
+            trace: bool, device: str = "cuda", tolerate: frozenset = frozenset(),
+            system=None) -> dict:
     """Run cell ``w`` and return its result line's object.
-    ``device="cpu"``, and ``tolerate`` (blocked modules that other tests
-    loaded into the process before the run), are for the harness's own
-    tests only: the command refuses to run without a card, and tolerates
-    no blocked module."""
+    ``device="cpu"``, ``tolerate`` (blocked modules that other tests
+    loaded into the process before the run) and ``system`` (a system
+    module in place of the one the configuration names) are for the
+    harness's own tests only: the command refuses to run without a card,
+    tolerates no blocked module, and takes the system module from the
+    configuration."""
     import torch
 
     if device == "cuda":
@@ -116,12 +162,16 @@ def execute(w: dict, cfg: dict, traffic: dict, metrics: dict, seed: int, seconds
         import repro_torch  # noqa: F401
     except ImportError as e:
         fail(f"the program cannot be imported from {ROOT / 'src'}: {e}", 4)
-    from perfbench.check import NUMBERS, verdict
+    from perfbench.check import verdict
     from perfbench.devtrace import Tracer
-    from perfbench.systems.sim_campaign import System
 
+    mod = system or system_module(cfg)
+    limits = cfg.get("limits", {})
+    missing = [k for k in mod.NUMBERS if k not in limits]
+    if missing:
+        fail("the configuration has no limit for " + ", ".join(missing))
     tracer = Tracer(trace)
-    system = System(cfg, traffic, seed, device, tracer)
+    system = mod.System(cfg, traffic, seed, device, tracer)
     t_imports = time.perf_counter() - T_START
     setup_parts = system.setup()
     if device == "cuda":
@@ -131,11 +181,10 @@ def execute(w: dict, cfg: dict, traffic: dict, metrics: dict, seed: int, seconds
     run = system.run(seconds)
     run["trace"] = tracer.stop()
     run["setup_s"] = t_window - T_START
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
-
-    found = [m for m in blocked_modules() if m not in tolerate]
-    if found:
-        fail("modules of the JAX stack or package were loaded: " + ", ".join(found), 5)
+    if "memory_peak_bytes" in run:
+        peak = run["memory_peak_bytes"]
+    else:
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
 
     dev = card_info(torch) if device == "cuda" else {"platform": "cpu", "kind": "cpu"}
     dev.update(count=w["chips"], memory_peak_bytes=int(peak))
@@ -153,27 +202,25 @@ def execute(w: dict, cfg: dict, traffic: dict, metrics: dict, seed: int, seconds
 
     t_check = time.perf_counter()
     numbers = system.check()
-    t_check = time.perf_counter() - t_check
-    limits = cfg["limits"]
-    # an operation is a record the campaigns were asked for; it failed where
-    # the program did not deliver it (a record whose every call the window
-    # scheme discarded is delivered, and read as empty_record_share)
-    result = {"correct": verdict(numbers, limits), "attempted": run["due"],
+    run["check_s"] = time.perf_counter() - t_check
+    run["setup_parts"] = dict(imports=t_imports, **setup_parts)
+    # an operation is one the window asked the program for (a campaign's
+    # record for the simulator); it failed where the program did not deliver it
+    result = {"correct": verdict(numbers, limits, mod.NUMBERS), "attempted": run["due"],
               "failed": run["due"] - run["records"], "metrics": values, "device": dev}
     if tr is not None:
         top = sorted(tr.device_s.items(), key=lambda kv: -kv[1])[:10]
         gaps = sorted(tr.idle_s.items(), key=lambda kv: -kv[1])[:10]
         result["breakdown"] = {"device_ops": [[n[:96], s] for n, s in top],
                                "idle_gaps": [[n, s] for n, s in gaps]}
-    result["run"] = {k: run[k] for k in ("wall_s", "campaigns", "records", "valid", "empty",
-                                         "rows", "topup_calls", "dispatches", "span_s")}
-    result["run"].update(sim_scan_launches=len(run["scan_shapes"]), check_s=t_check,
-                         setup_parts=dict(imports=t_imports, **setup_parts),
-                         **{k: numbers[k] for k in ("epochs_checked", "windows_checked",
-                                                    "calls_checked", "flag_rows", "unpaired")})
-    result["checks"] = {k: {"value": finite(numbers[k]), "limit": limits[k]} for k in NUMBERS}
+    result["run"] = system.summary(run, numbers)
+    result["checks"] = {k: {"value": finite(numbers[k]), "limit": limits[k]} for k in mod.NUMBERS}
+    # after the readers, the check and the summary, which may load modules
+    found = [m for m in blocked_modules() if m not in tolerate]
+    if found:
+        fail("modules of the JAX stack or package were loaded: " + ", ".join(found), 5)
     print(json.dumps({k: result[k] for k in ("correct", "run")}), file=sys.stderr)
-    for k in NUMBERS:
+    for k in mod.NUMBERS:
         print(f"check {k} {numbers[k]!r} limit {limits[k]!r}", file=sys.stderr)
     return result
 

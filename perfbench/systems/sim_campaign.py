@@ -10,6 +10,7 @@ program is not changed.
 
 from __future__ import annotations
 
+import copy
 import gc
 import time
 from collections import defaultdict
@@ -17,6 +18,8 @@ from collections import defaultdict
 import numpy as np
 
 from .. import check as checking
+from ..check import NUMBERS  # noqa: F401  (the names this module's check compares)
+from ..reference.engine import sync_of
 from ..traffic import campaign
 
 
@@ -145,6 +148,18 @@ class System:
         self.cfg, self.traffic, self.seed, self.device = cfg, traffic, seed, device
         self.tracer = tracer
         self.probes = Probes(tracer)
+        sync_of(cfg["sync"])        # a sync the reference lacks fails before the window
+
+    @staticmethod
+    def tiny(cfg: dict, traffic: dict) -> tuple[dict, dict]:
+        """The cell cut to the CPU: 8 hosts, HCA at 20 x 5, two epochs a
+        campaign, every epoch checked, and nrep 300 (drawn in buckets) or
+        1100 (drawn at its own length) for mixes below and above 1024."""
+        cfg, traffic = copy.deepcopy(cfg), copy.deepcopy(traffic)
+        cfg.update(p=8, n_fitpts=20, n_exchanges=5)
+        traffic.update(nrep=1100 if traffic["nrep"] >= 1024 else 300,
+                       epochs_per_campaign=2, check_epochs_per_campaign=2)
+        return cfg, traffic
 
     def backend(self, seed0: int):
         from repro_torch.campaign import TorchSimBackend
@@ -242,3 +257,15 @@ class System:
         if self.device == "cuda":
             torch.cuda.empty_cache()
         return checking.check(self.cfg, self.probes.captures, self.device)
+
+    @staticmethod
+    def summary(run: dict, numbers: dict) -> dict:
+        """The result line's ``run``: the window's counts and spans, the
+        set-up's and the check's seconds, and how much the check compared."""
+        out = {k: run[k] for k in ("wall_s", "campaigns", "records", "valid", "empty", "rows",
+                                   "topup_calls", "dispatches", "span_s")}
+        out.update(sim_scan_launches=len(run["scan_shapes"]), check_s=run["check_s"],
+                   setup_parts=run["setup_parts"],
+                   **{k: numbers[k] for k in ("epochs_checked", "windows_checked",
+                                              "calls_checked", "flag_rows", "unpaired")})
+        return out

@@ -11,7 +11,7 @@ import pytest
 
 from perfbench import control
 from perfbench.check import verdict
-from perfbench.tests.tiny import CELLS, harness, tiny
+from perfbench.tests.tiny import CELLS, harness, system_of, tiny
 
 
 @pytest.fixture
@@ -26,12 +26,23 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", CELLS)
 def test_tiny_cell_on_the_card_is_correct_and_traced(card, name):
+    import torch
+
+    w = tiny(name)[0]
+    if torch.cuda.device_count() < w["chips"]:
+        pytest.skip(f"{name} needs {w['chips']} GPUs")
     res = harness.execute(*tiny(name), seed=2**31 + 9, seconds=0.5, trace=True, device=card,
                           tolerate=frozenset(harness.blocked_modules()))
     assert res["correct"], res["checks"]
     assert res["device"]["platform"] == "gpu" and res["device"]["busy_s"] > 0
-    assert 0 < res["metrics"]["sim_scan_roofline"]["value"] <= 105
-    assert 0 <= res["metrics"]["idle_pct"]["value"] < 100
+    got = res["metrics"]
+    if system_of(name) == "sim_campaign":
+        assert {"sim_scan_roofline", "idle_pct"} <= set(got)
+    for k, v in got.items():
+        if k.endswith("_roofline"):
+            assert 0 < v["value"] <= 105, k
+    if "idle_pct" in got:
+        assert 0 <= got["idle_pct"]["value"] < 100
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The program's own spans and counters (``repro_torch.core.telemetry``)
 against the harness's wrappers, in a tiny traced run of each cell on the
-CPU: the per-layer metrics that read them are reported where they list the
+CPU, for each cell that ``sim_campaign`` runs: the per-layer
+metrics that read them are reported where they list the
 cell, the counts of records, empty records, valid calls and top-up windows
 are the harness's exactly, and the program's span totals at each wrapped
 boundary agree with the harness's host spans within 2%, or 2 ms."""
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import pytest
 
-from perfbench.tests.tiny import BENCH, CELLS, run_tiny
+from perfbench.tests.tiny import BENCH, SIM_CELLS, run_tiny
 
 #: The metrics that read the program's spans and counters.
 PROGRAM = ("copy_out_share", "d2h_bytes_per_valid", "readbacks_per_window", "hca_tree_share",
@@ -20,7 +21,7 @@ def _close(program_s: float, harness_s: float) -> bool:
     return abs(program_s - harness_s) <= max(0.002, 0.02 * harness_s)
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", SIM_CELLS)
 def test_program_spans_agree_with_the_harness(name):
     from repro_torch.core import telemetry
 

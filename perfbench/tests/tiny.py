@@ -1,11 +1,9 @@
-"""Each cell of ``BENCHMARK.json`` cut to a size the CPU runs in seconds:
-the same configuration and traffic mix with 8 hosts, HCA at 20 x 5, two
-epochs a campaign, every epoch checked, and nrep 300 (drawn in buckets)
-or 1100 (drawn at its own length) for mixes above and below 1024."""
+"""Each cell of ``BENCHMARK.json`` cut to a size the CPU runs in seconds,
+by its system module's ``System.tiny``: the same configuration and
+traffic mix, at that module's CPU size."""
 
 from __future__ import annotations
 
-import copy
 import json
 import sys
 from pathlib import Path
@@ -21,19 +19,34 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
+def system_of(name: str) -> str:
+    """The system module's name of cell ``name``."""
+    return harness.cell(BENCH, name)[1].get("system", harness.DEFAULT_SYSTEM)
+
+
+#: The cells that ``sim_campaign`` runs.
+SIM_CELLS = [n for n in CELLS if system_of(n) == "sim_campaign"]
+
+
 def tiny(name: str):
     """``(workload, config, traffic, metrics)`` of cell ``name``, cut down."""
     w, cfg, traffic, metrics = harness.cell(BENCH, name)
-    cfg, traffic = copy.deepcopy(cfg), copy.deepcopy(traffic)
-    cfg.update(p=8, n_fitpts=20, n_exchanges=5)
-    traffic.update(nrep=1100 if traffic["nrep"] >= 1024 else 300,
-                   epochs_per_campaign=2, check_epochs_per_campaign=2)
+    cfg, traffic = harness.system_module(cfg).System.tiny(cfg, traffic)
     return w, cfg, traffic, metrics
 
 
 def run_tiny(name: str, seed: int = 2**31 + 7, trace: bool = False, seconds: float = 0.2):
-    """Cell ``name`` cut down, on the CPU. Blocked modules that other tests
-    already loaded into this process are tolerated; none that the run
-    loads is."""
-    return harness.execute(*tiny(name), seed=seed, seconds=seconds, trace=trace, device="cpu",
-                           tolerate=frozenset(harness.blocked_modules()))
+    """Cell ``name`` cut down, on the CPU, with one intra-op thread: the
+    test workers share the host's cores, and a pool of threads per worker
+    oversubscribes them, so that the run's thread is descheduled for tens
+    of milliseconds at a time. Blocked modules that other tests already
+    loaded into this process are tolerated; none that the run loads is."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return harness.execute(*tiny(name), seed=seed, seconds=seconds, trace=trace,
+                               device="cpu", tolerate=frozenset(harness.blocked_modules()))
+    finally:
+        torch.set_num_threads(threads)
