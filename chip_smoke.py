@@ -18,8 +18,8 @@ Phases, each of which raises (exit code 1) on failure:
   1. device: the card's name and power limit, torch / CUDA / nvcc versions;
   2. build: the ``sim_scan``, ``flash_attention`` (CUDA cores, bf16 at
      head dims 16 and 32), ``flash_attention_sm90`` (tensor cores, bf16),
-     ``flash_attention_tf32`` (tensor cores, f32 in 3xTF32) and
-     ``ssd_scan`` CUDA sources, from ``src/repro_torch/kernels`` into
+     ``flash_attention_tf32`` (tensor cores, f32 in 3xTF32), ``ssd_scan``
+     and ``hca_timeline`` CUDA sources, from ``src/repro_torch/kernels`` into
      ``build/kernels/``,
      one ``nvcc`` each, all started together; each build's time and its
      ptxas lines (registers, spills, shared memory, performance warnings);
@@ -28,6 +28,11 @@ Phases, each of which raises (exit code 1) on failure:
      tile and 1e5), each case launched twice and held bit-identical, then
      its times at the main path's two shapes (the fused R = 30 call and an
      R = 1 top-up, n = 1e5) beside its memory bound;
+ 3b. ``hca_timeline`` at the shapes of phase 6's sync (HCA's tree at p
+     512, 200 x 40: rounds of 256, 128, ..., 1 pairs, 16221 latencies a
+     pair) against its plain version on the same inputs on the CPU, to
+     the bit, then its time per round beside its memory bound and the
+     plain version's on the card, and a sync's 9 rounds summed;
   4. both engines on the card against the port on the CPU, noise-free
      from the same state (a device-only fault shows here), and the fused
      engine against the per-epoch one on the card under live noise, bit
@@ -39,7 +44,8 @@ Phases, each of which raises (exit code 1) on failure:
   6. the main path at a size users run: p = 512 ranks, 30 launch epochs,
      nrep = 100 000, hca sync, allreduce/bcast/alltoall at 4096 B, fused,
      with its time split into host sync, sampling and window, and the
-     shapes ``sim_scan`` was launched at; one epoch of the same shape
+     shapes ``sim_scan`` was launched at; each sync's tree on the card (9
+     ``hca_timeline`` launches and 511 pairs a sync); one epoch of the same shape
      through the CPU path for scale and as a cross-check;
   7. ``flash_attention`` against its plain version on the card over the
      reference's shape grid (GQA, MQA, MHA, head dims 16-256), f32 and
@@ -258,9 +264,11 @@ Phases, each of which raises (exit code 1) on failure:
      phase 23's walkthroughs; ``sim_scan``'s adds ``launches_batch``, its
      launches under the numpy engines in phase 24, and
      ``launches_barrier_batch``, those of phase 12's card calls under
-     ``engine="batch"``.
+     ``engine="batch"``; ``hca_timeline``'s entry holds phase 3b's times
+     at the first round (256 pairs) and, as ``*_sync``, a sync's 9
+     rounds summed, and counts its launches on the main path.
 
-Every timed kernel in phases 3, 7 and 8 has ``nvidia-smi``'s SM clock
+Every timed kernel in phases 3, 3b, 7 and 8 has ``nvidia-smi``'s SM clock
 (now and max), power draw and temperature, sampled right before and after
 it, printed beside its time.
 
@@ -439,6 +447,7 @@ def phase_build():
     from repro_torch.kernels.flash_attention.kernel import load_kernel as load_flash
     from repro_torch.kernels.flash_attention.kernel import load_kernel_sm90 as load_flash90
     from repro_torch.kernels.flash_attention.kernel import load_kernel_tf32 as load_flash32
+    from repro_torch.kernels.hca_timeline.kernel import load_kernel as load_hca
     from repro_torch.kernels.sim_scan.kernel import load_kernel as load_sim
     from repro_torch.kernels.ssd_scan.kernel import load_kernel as load_ssd
 
@@ -450,7 +459,7 @@ def phase_build():
     t0 = time.perf_counter()
     loads = dict(sim_scan=load_sim, flash_attention=load_flash,
                  flash_attention_sm90=load_flash90, flash_attention_tf32=load_flash32,
-                 ssd_scan=load_ssd)
+                 ssd_scan=load_ssd, hca_timeline=load_hca)
     with ThreadPoolExecutor(len(loads)) as pool:     # one nvcc per source at once
         futures = {name: pool.submit(timed, load) for name, load in loads.items()}
         results = {name: f.result() for name, f in futures.items()}
@@ -551,6 +560,61 @@ def phase_kernel(torch) -> dict:
                 ms_r1=r1["ms"], plain_ms_r1=r1["plain_ms"], bound_ms_r1=r1["bound_ms"])
 
 
+def phase_hca_timeline(torch) -> dict:
+    from repro_torch.core import SimNet
+    from repro_torch.core.sync.base import RTT_PINGPONGS, RTT_WARMUP
+    from repro_torch.kernels.hca_timeline import hca_timeline, hca_timeline_ref, row_length
+
+    # phase 6's sync: HCA at p 512, 200 fitpoints x 40 exchanges, whose
+    # tree runs 9 rounds of 256, 128, ..., 1 pairs on the card
+    p, nseg, nx = 512, 200, 40
+    net = SimNet(p, seed=0).net
+    L = row_length(RTT_WARMUP, RTT_PINGPONGS, nseg, nx)
+    kw = dict(warmup=RTT_WARMUP, counted=RTT_PINGPONGS, nseg=nseg, nx=nx,
+              oh=net.proc_overhead)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2015)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    launches0 = hca_timeline.launches
+    rows = {}
+    for K in (256, 128, 64, 32, 16, 8, 4, 2, 1):
+        # the latencies as the tree forms them from the host's draws
+        lat = net.one_way * torch.exp(net.jitter_sigma * torch.randn(K, L, generator=gen, **f64))
+        lat = torch.where(torch.rand(K, L, generator=gen, **f64) < net.spike_prob,
+                          lat * net.spike_scale, lat)
+        t_ref, t_cli = (torch.rand(K, generator=gen, **f64) for _ in range(2))
+        got = hca_timeline(lat, t_ref, t_cli, **kw)
+        # the plain version on the CPU adds in numpy's order, as the kernel does
+        want = hca_timeline_ref(lat.cpu(), t_ref.cpu(), t_cli.cpu(), **kw)
+        require(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+                f"hca_timeline K={K}: equal to its plain version to the bit")
+        ms, clk = clocked(lambda: cuda_ms(lambda: hca_timeline(lat, t_ref, t_cli, **kw),
+                                          20, queued=True, spin=4e5))
+        plain_ms = cuda_ms(lambda: hca_timeline_ref(lat, t_ref, t_cli, **kw), 3)
+        # reads each latency and both true times; writes the counted
+        # ping-pongs' two times, the sweep's two, three per segment and two
+        nbytes = 8 * K * (L + 2 + 2 * RTT_PINGPONGS + 2 * nseg * nx + 3 * nseg + 2)
+        rows[K] = dict(ms=ms, plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        print(f"# [3b hca_timeline] K={K} pairs x {L} latencies: == plain to the bit; "
+              f"kernel {ms:.4f} ms {clk}, plain {plain_ms:.4f} ms, bound "
+              f"{rows[K]['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
+              f"{rows[K]['bound_ms'] / ms:.3f} of the bound")
+        del lat, got
+    require(hca_timeline.launches - launches0 == 9 + 9 * 21,
+            "hca_timeline launch counter rose once per call")
+    sync = {k: sum(r[k] for r in rows.values()) for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"# [3b hca_timeline] a sync's 9 rounds: kernel {sync['ms']:.4f} ms, plain "
+          f"{sync['plain_ms']:.4f} ms, bound {sync['bound_ms']:.4f} ms; each pair's "
+          f"{2 * (RTT_WARMUP + RTT_PINGPONGS) + nseg} steps in order on one thread")
+    first = rows[256]
+    return dict(name="hca_timeline", route="cuda",
+                source="src/repro_torch/kernels/hca_timeline/csrc/hca_timeline.cu",
+                replaces=None, max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by="bytes", library_ms=None,
+                ms_sync=sync["ms"], plain_ms_sync=sync["plain_ms"],
+                bound_ms_sync=sync["bound_ms"])
+
+
 def phase_engines(torch):
     import numpy as np
 
@@ -641,12 +705,13 @@ def phase_gate(torch):
           "EQUIVALENT, 0 DRIFTED")
 
 
-def phase_main_path(torch) -> tuple[int, float]:
+def phase_main_path(torch) -> tuple[int, int, float]:
     import numpy as np
 
     from repro_torch import simengine
     from repro_torch.campaign import Campaign, CampaignSpec, TorchSimBackend
     from repro_torch.core import ExperimentDesign, TestCase, telemetry
+    from repro_torch.kernels.hca_timeline import hca_timeline
     from repro_torch.kernels.sim_scan import sim_durations_scan
 
     p, epochs, nrep = 512, 30, 100_000
@@ -679,13 +744,13 @@ def phase_main_path(torch) -> tuple[int, float]:
                                                     seed=0), name="main-path")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        sim_durations_scan.launches = 0
+        sim_durations_scan.launches = hca_timeline.launches = 0
         t = time.perf_counter()
         with telemetry.recording():
             res = Campaign(spec, TorchSimBackend(p=p, seed0=0)).run()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = sim_durations_scan.launches
+        launches, hca_launches = sim_durations_scan.launches, hca_timeline.launches
         peak = torch.cuda.max_memory_allocated()
     finally:
         for obj, name, fn in originals:
@@ -694,12 +759,19 @@ def phase_main_path(torch) -> tuple[int, float]:
     rows_ms = {R: spans.ms(f"sim_scan R={R}") for R in sorted(by_rows)}
     kernel_ms = sum(rows_ms.values())
     window_ms = spans.ms("_window")
-    host = telemetry.snapshot()["totals"]
+    snap = telemetry.snapshot()
+    host = snap["totals"]
     none = dict(count=0, total_s=0.0)
     # every per-epoch window of this fused campaign is a top-up
     sync, fused, topup = (host.get(k, none) for k in ("sync", "engine.fused", "engine.window"))
 
     require(launches > 0, "main path launched sim_scan")
+    # each epoch's sync runs HCA's tree on the card: 9 rounds, 511 pairs
+    require(hca_launches == 9 * sync["count"] and sync["count"] == epochs
+            and snap["counters"].get("sync.hca.pairs_on_device") == 511 * epochs,
+            f"main path: {hca_launches} hca_timeline launches and "
+            f"{snap['counters'].get('sync.hca.pairs_on_device')} pairs on the card for "
+            f"{sync['count']} syncs (9 and 511 each)")
     require(len(res.records) == epochs * len(cases), "one record per case x epoch")
     for r in res.records:
         require(r.meta["engine"] == "torch" and r.meta["device"].startswith("cuda")
@@ -722,7 +794,8 @@ def phase_main_path(torch) -> tuple[int, float]:
           f"{sample_ms / 1e3:.3f} s (sim_scan kernel {kernel_ms / 1e3:.4f} s), "
           f"window {window_ms / 1e3:.3f} s; kernel share of device spans "
           f"{kernel_ms / (sample_ms + window_ms):.4f}, of wall "
-          f"{kernel_ms / 1e3 / wall:.5f}; sim_scan launches {launches}; peak "
+          f"{kernel_ms / 1e3 / wall:.5f}; sim_scan launches {launches}, hca_timeline "
+          f"{hca_launches} (HCA's tree on the card, 511 pairs a sync); peak "
           f"device memory {peak / 2**30:.2f} GiB; "
           f"dispatches {res.meta['dispatch']}; valid share per record after "
           "top-ups (min/mean): " + ", ".join(
@@ -756,7 +829,7 @@ def phase_main_path(torch) -> tuple[int, float]:
     print(f"# [6 cpu] one epoch of the same shape on the CPU path: {cpu_s:.2f} s "
           f"(card: {wall / epochs:.2f} s per epoch); epoch-0 median cuda/cpu: "
           + ", ".join(ratios))
-    return launches, wall / epochs
+    return launches, hca_launches, wall / epochs
 
 
 def rel_err(a, b) -> float:
@@ -4263,9 +4336,10 @@ def main() -> int:
     phase_device(torch)
     phase_build()
     kernel = phase_kernel(torch)
+    hca = phase_hca_timeline(torch)
     phase_engines(torch)
     phase_gate(torch)
-    kernel["launches"], main_epoch_s = phase_main_path(torch)
+    kernel["launches"], hca["launches"], main_epoch_s = phase_main_path(torch)
     flash, flash_bf16 = phase_flash(torch)
     ssd, ssd_bf16 = phase_ssd(torch)
     # the A/B path in the reference's f32 (the 3xTF32 flash instance), then
@@ -4329,7 +4403,7 @@ def main() -> int:
     kernel["launches_examples"], flash["launches_examples"] = walk["sim_scan"], walk["tf32x3"]
     # the reference's numpy engines, their durations scanned on the card
     kernel["launches_batch"] = phase_numpy_engines(torch, main_epoch_s)
-    print(json.dumps({"kernels": [kernel, flash, flash_bf16, ssd, ssd_bf16]}))
+    print(json.dumps({"kernels": [kernel, flash, flash_bf16, ssd, ssd_bf16, hca]}))
     print(f"# total {time.perf_counter() - t0:.1f} s")
     print(smi())
     print(json.dumps({"ok": True, "device": {

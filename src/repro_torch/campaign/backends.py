@@ -123,8 +123,8 @@ class _TorchSimEpoch:
                 else None,
                 seed=backend.seed0 + 1000 * epoch)
         sync_kw = _filter_sync_kw(backend.sync_name, backend.sync_kw)
-        self.sync = make_sync(backend.sync_name,
-                              **sync_kw).synchronize(self.net)
+        self.sync = make_sync(backend.sync_name, **sync_kw).synchronize(
+            self.net, device=self.device)
         self.engine = resolve_engine(backend.engine, self.net)
         self._ops: dict[str, Any] = {}
 

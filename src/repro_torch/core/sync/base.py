@@ -61,7 +61,11 @@ class ClockSync:
 
     name: str = "abstract"
 
-    def synchronize(self, net: SimNet, ranks: list[int] | None = None) -> SyncResult:
+    def synchronize(self, net: SimNet, ranks: list[int] | None = None,
+                    device=None) -> SyncResult:
+        """Synchronize ``ranks`` (all of ``net``'s by default). ``device``
+        is the torch device the caller measures on, or ``None``: HCA runs
+        its tree there when it is a CUDA device; the others ignore it."""
         raise NotImplementedError
 
 
@@ -69,8 +73,13 @@ class ClockSync:
 # Shared measurement primitives (Algorithms 7 and 17)
 # --------------------------------------------------------------------------
 
-def compute_rtt(net: SimNet, p1: int, p2: int, n_pingpongs: int = 100,
-                warmup: int = 10) -> float:
+#: COMPUTE_RTT's ping-pongs: ``RTT_WARMUP`` unrecorded, then
+#: ``RTT_PINGPONGS`` recorded.
+RTT_WARMUP, RTT_PINGPONGS = 10, 100
+
+
+def compute_rtt(net: SimNet, p1: int, p2: int, n_pingpongs: int = RTT_PINGPONGS,
+                warmup: int = RTT_WARMUP) -> float:
     """COMPUTE_RTT (Alg. 17): mean RTT after Tukey outlier removal.
 
     ``p2`` is the client measuring the RTT to ``p1`` (matching the paper's

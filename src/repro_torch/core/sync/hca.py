@@ -27,11 +27,13 @@ from __future__ import annotations
 
 import math
 
+import torch
 
 from ..clocks import LinearModel, linear_fit
 from ..simnet import SimNet
 from ..telemetry import span
 from .base import ClockSync, SyncResult, compute_rtt, skampi_pingpong_adjusted
+from .hca_device import run_tree
 from .jk import collect_fitpoints_batch
 
 __all__ = ["HCASync", "learn_model_hca"]
@@ -94,8 +96,70 @@ class HCASync(ClockSync):
         diff_timestamp = net.local_time(client) - initial_times[client]
         return lm.with_intercept_from_offset(diff, diff_timestamp)
 
+    def _tree(self, net: SimNet, ranks: list[int],
+              initial_times: list[float]) -> list[LinearModel]:
+        """The O(log p) tree on the host, pair by pair: each local index's
+        model relative to ``ranks[0]``."""
+        p = len(ranks)
+        maxpower = 2 ** int(math.floor(math.log2(p))) if p > 1 else 1
+
+        # subtree[i]: models of members (local indices) relative to local
+        # index i, built bottom-up; mirrors the l_model tables of Alg. 3.
+        subtree: dict[int, dict[int, LinearModel]] = {
+            i: {i: LinearModel(0.0, 0.0)} for i in range(p)
+        }
+
+        # ---- SYNC_CLOCKS_POW2: hierarchical slope (and HCA2: intercept)
+        rnd = 1
+        while 2 ** rnd <= maxpower:
+            half = 2 ** (rnd - 1)
+            for ref_i in range(0, maxpower, 2 ** rnd):
+                cli_i = ref_i + half
+                ref_r, cli_r = ranks[ref_i], ranks[cli_i]
+                rtt = compute_rtt(net, ref_r, cli_r)
+                lm = learn_model_hca(
+                    net, ref_r, cli_r, rtt,
+                    self.n_fitpts, self.n_exchanges, initial_times,
+                )
+                if self.hierarchical_intercepts:
+                    lm = self._set_intercept(net, lm, cli_r, ref_r, initial_times)
+                # Client ships its model table one level up (one message).
+                net.transfer(cli_r, ref_r)
+                for m, sub_lm in subtree[cli_i].items():
+                    subtree[ref_i][m] = LinearModel.merge(lm, sub_lm)
+            rnd += 1
+
+        # ---- SYNC_CLOCKS_REMAINING: non-power-of-two ranks, one round --
+        for j in range(p - maxpower):
+            q_i = maxpower + j
+            ref_i = j
+            q_r, ref_r = ranks[q_i], ranks[ref_i]
+            rtt = compute_rtt(net, ref_r, q_r)
+            lm = learn_model_hca(
+                net, ref_r, q_r, rtt, self.n_fitpts, self.n_exchanges, initial_times
+            )
+            if self.hierarchical_intercepts:
+                lm = self._set_intercept(net, lm, q_r, ref_r, initial_times)
+            net.transfer(q_r, ranks[0])  # gather on root (sub-communicator)
+            subtree[0][q_i] = LinearModel.merge(subtree[0][ref_i], lm)
+        return [subtree[0].get(i, LinearModel(0.0, 0.0)) for i in range(p)]
+
     # -- main ---------------------------------------------------------------
-    def synchronize(self, net: SimNet, ranks: list[int] | None = None) -> SyncResult:
+    def synchronize(self, net: SimNet, ranks: list[int] | None = None,
+                    device=None) -> SyncResult:
+        """HCA over ``ranks``. On a CUDA ``device`` the O(log p) tree runs
+        there, one round at a time (:mod:`.hca_device`): the same draws,
+        true times and models to rounding. Elsewhere, and for ``hca2``
+        (whose pairs each draw a SKaMPI exchange), it runs on the host."""
+        on_card = (device is not None and torch.device(device).type == "cuda"
+                   and not self.hierarchical_intercepts
+                   and self.n_fitpts >= 2 and self.n_exchanges >= 1)
+        return self._synchronize(net, ranks, device if on_card else None)
+
+    def _synchronize(self, net: SimNet, ranks: list[int] | None,
+                     tree_device) -> SyncResult:
+        """:meth:`synchronize` with the tree on ``tree_device``, or on the
+        host where it is ``None``."""
         ranks = list(range(net.p)) if ranks is None else ranks
         p = len(ranks)
         root = ranks[0]
@@ -108,54 +172,18 @@ class HCASync(ClockSync):
         for r in ranks:
             initial_times[r] = net.local_time(r)
 
-        maxpower = 2 ** int(math.floor(math.log2(p))) if p > 1 else 1
-
-        # subtree[i]: models of members (local indices) relative to local
-        # index i, built bottom-up; mirrors the l_model tables of Alg. 3.
-        subtree: dict[int, dict[int, LinearModel]] = {
-            i: {i: LinearModel(0.0, 0.0)} for i in range(p)
-        }
-
         # the O(log p) tree: fitpoint sweeps, RTTs and model merges
         with span("sync.hca.tree"):
-            # ---- SYNC_CLOCKS_POW2: hierarchical slope (and HCA2: intercept)
-            rnd = 1
-            while 2 ** rnd <= maxpower:
-                half = 2 ** (rnd - 1)
-                for ref_i in range(0, maxpower, 2 ** rnd):
-                    cli_i = ref_i + half
-                    ref_r, cli_r = ranks[ref_i], ranks[cli_i]
-                    rtt = compute_rtt(net, ref_r, cli_r)
-                    lm = learn_model_hca(
-                        net, ref_r, cli_r, rtt,
-                        self.n_fitpts, self.n_exchanges, initial_times,
-                    )
-                    if self.hierarchical_intercepts:
-                        lm = self._set_intercept(net, lm, cli_r, ref_r, initial_times)
-                    # Client ships its model table one level up (one message).
-                    net.transfer(cli_r, ref_r)
-                    for m, sub_lm in subtree[cli_i].items():
-                        subtree[ref_i][m] = LinearModel.merge(lm, sub_lm)
-                rnd += 1
-
-            # ---- SYNC_CLOCKS_REMAINING: non-power-of-two ranks, one round --
-            for j in range(p - maxpower):
-                q_i = maxpower + j
-                ref_i = j
-                q_r, ref_r = ranks[q_i], ranks[ref_i]
-                rtt = compute_rtt(net, ref_r, q_r)
-                lm = learn_model_hca(
-                    net, ref_r, q_r, rtt, self.n_fitpts, self.n_exchanges, initial_times
-                )
-                if self.hierarchical_intercepts:
-                    lm = self._set_intercept(net, lm, q_r, ref_r, initial_times)
-                net.transfer(q_r, ranks[0])  # gather on root (sub-communicator)
-                subtree[0][q_i] = LinearModel.merge(subtree[0][ref_i], lm)
+            if tree_device is not None and p > 1:
+                tree = run_tree(net, ranks, initial_times, self.n_fitpts,
+                                self.n_exchanges, tree_device)
+            else:
+                tree = self._tree(net, ranks, initial_times)
 
         # ---- models now live on root; scatter (Alg. 2 line 5) --------------
         models = [LinearModel(0.0, 0.0) for _ in range(net.p)]
         for i, r in enumerate(ranks):
-            models[r] = subtree[0].get(i, LinearModel(0.0, 0.0))
+            models[r] = tree[i]
 
         # ---- first approach: linear intercept re-anchoring (O(p)) ----------
         if not self.hierarchical_intercepts:

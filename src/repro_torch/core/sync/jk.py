@@ -177,7 +177,8 @@ class JKSync(ClockSync):
         self.n_fitpts = n_fitpts
         self.n_exchanges = n_exchanges
 
-    def synchronize(self, net: SimNet, ranks: list[int] | None = None) -> SyncResult:
+    def synchronize(self, net: SimNet, ranks: list[int] | None = None,
+                    device=None) -> SyncResult:
         ranks = list(range(net.p)) if ranks is None else ranks
         root = ranks[0]
         others = [r for r in ranks if r != root]

@@ -61,7 +61,8 @@ class NetgaugeSync(ClockSync):
         self.window = window
         self.max_exchanges = max_exchanges
 
-    def synchronize(self, net: SimNet, ranks: list[int] | None = None) -> SyncResult:
+    def synchronize(self, net: SimNet, ranks: list[int] | None = None,
+                    device=None) -> SyncResult:
         ranks = list(range(net.p)) if ranks is None else ranks
         p = len(ranks)
         net.align(ranks)

@@ -22,7 +22,8 @@ class SkampiSync(ClockSync):
     def __init__(self, n_pingpongs: int = 100):
         self.n_pingpongs = n_pingpongs
 
-    def synchronize(self, net: SimNet, ranks: list[int] | None = None) -> SyncResult:
+    def synchronize(self, net: SimNet, ranks: list[int] | None = None,
+                    device=None) -> SyncResult:
         ranks = list(range(net.p)) if ranks is None else ranks
         root = ranks[0]
         net.align(ranks)

@@ -41,6 +41,7 @@ from repro_torch.core import (OP_LIBRARY, BatchExecution, ClockParams,
                               TestCase, make_composite_op, make_op, make_sync,
                               resolve_engine, run_windowed, run_windowed_rw_batch,
                               run_windowed_scalar, wilcoxon_rank_sum)
+from repro_torch.core import telemetry
 from repro_torch.core.mpi_ops import _ar1_filter
 from repro_torch.core.sync import collect_fitpoint
 from repro_torch.simengine import scan_host_draws
@@ -275,6 +276,24 @@ def test_backend_campaigns_equal_reference_sim_backend(engine, kw):
     assert all(np.array_equal(a[k], b[k]) for k in a)
     assert [r.meta["engine"] for r in ref.records] == [r.meta["engine"] for r in ours.records]
 
+
+def test_cpu_backend_syncs_on_the_host_bit_equal_to_reference():
+    """On the CPU the epoch's HCA tree stays on the host: no pair runs on
+    the device (``sync.hca.pairs_on_device`` never counts) and the records
+    are the reference ``SimBackend``'s, bit for bit."""
+    kw = dict(p=12, seed0=9, sync_kw=dict(n_fitpts=30, n_exchanges=10))
+    cases = [TestCase("allreduce", 512), TestCase("bcast", 4096)]
+    design = ExperimentDesign(n_launch_epochs=2, nrep=30, seed=4)
+    with telemetry.recording():
+        ours = Campaign(CampaignSpec(cases, design),
+                        TorchSimBackend(engine="batch", device="cpu", **kw)).run()
+    assert "sync.hca.pairs_on_device" not in telemetry.snapshot()["counters"]
+    ref = RefCampaign(RefSpec([RefCase(c.op, c.msize) for c in cases],
+                              RefDesign(n_launch_epochs=2, nrep=30, seed=4)),
+                      SimBackend(engine="batch", **kw)).run()
+    a, b = _records(ref.records), _records(ours.records)
+    assert len(a) == len(b) == 4 and set(a) == set(b)
+    assert all(np.array_equal(a[k], b[k]) for k in a)
 
 def test_backend_engine_rules():
     """``scalar`` wants the CPU (checked before the device, so it raises
